@@ -1,0 +1,35 @@
+"""dct3d_tpu_torch — the PyTorch/CUDA port of the dct3d_tpu codec.
+
+A second package beside the JAX one, for one NVIDIA H100 (Hopper, sm_90a).
+It encodes and decodes reference-profile streams (signed Exp-Golomb inside
+zlib) byte-compatible with ``dct3d_tpu``: the transform is torch.matmul in
+full float32, and the four device kernels of the path are hand-written
+CUDA (csrc/, built with nvcc on first use, see kernels.py):
+
+  K1 frames -> cubes    ops/relayout.py    csrc/relayout.cu
+  K2 group bit pack     ops/group_pack.py  csrc/group_pack.cu
+  K3 group splice       ops/splice.py      csrc/splice.cu
+  K4 cubes -> frames    ops/relayout.py    csrc/relayout.cu
+
+Every public entry point takes an explicit ``device`` (or a
+``TransformContext`` that holds one): on "cuda" the kernels run, on "cpu"
+their plain PyTorch versions.  The package imports torch and never jax.
+"""
+
+from .codec.decoder import decode_frame_range, decode_video
+from .codec.encoder import StreamingEncoder, encode_video
+from .codec.transform import TransformContext
+from .config import DEFAULT_CONFIG, CodecConfig
+from .metrics import bits_per_pixel, psnr
+
+__all__ = [
+    "CodecConfig",
+    "DEFAULT_CONFIG",
+    "StreamingEncoder",
+    "TransformContext",
+    "bits_per_pixel",
+    "decode_frame_range",
+    "decode_video",
+    "encode_video",
+    "psnr",
+]

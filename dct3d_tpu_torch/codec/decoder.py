@@ -1,0 +1,183 @@
+"""GOP-parallel decode of whole streams and frame ranges.
+
+The port's counterpart of ``dct3d_tpu.codec.decoder`` for reference-profile
+streams: the host inflates the zlib stream (GOP-parallel when the encoder's
+sync offsets are given) and entropy-decodes GOPs on a thread pool into
+nibble planes + exceptions (C, codec/entropy.py); each GOP goes to the
+device with non-blocking copies from pinned memory, is inverse-transformed
+there (codec/transform.planar4_to_frames), and comes back with a
+non-blocking copy while the host decodes the next GOPs.
+
+Geometry (width/height/frame count) is supplied out of band exactly like
+the reference (no container header, Decoder.java:17-28, main.c:27-44).
+"""
+
+from __future__ import annotations
+
+import collections
+import zlib
+
+import numpy as np
+import torch
+
+from ..config import CodecConfig
+from . import entropy
+from .transform import TransformContext, planar4_to_frames, to_device
+
+_WINDOW = 4  # GOPs in flight on the device before the oldest is drained
+
+
+def _split_dc_flat(plane: np.ndarray, idx: np.ndarray, val: np.ndarray,
+                   cube: int):
+    """Derive the dense per-cube DC vector of a flat nibble plane and drop
+    the DC entries from the exception list.
+
+    dc[c] is the true value at flat index c*cube: the sign-extended low
+    nibble of the cube's first plane byte, overwritten by its exception
+    when one exists.  The device splices dc as column 0 and the exception
+    scatter shrinks to the true outliers.  Returns (dc int32, idx', val').
+    """
+    dc = (((plane[:: cube // 2].astype(np.int32)) & 0xF) ^ 8) - 8
+    is_dc = (idx % cube) == 0
+    if is_dc.any():
+        dc[idx[is_dc] // cube] = val[is_dc]
+        idx = idx[~is_dc]
+        val = val[~is_dc]
+    return dc, idx, val
+
+
+def _dispatch_planar4(planar, ctx: TransformContext, height: int,
+                      width: int) -> torch.Tensor:
+    """Upload one GOP's (plane, exc_idx, exc_val) and run the device step."""
+    plane, idx, val = planar
+    dc, idx, val = _split_dc_flat(plane, idx, val, ctx.cfg.cube_size)
+    dev = ctx.device
+    return planar4_to_frames(
+        to_device(plane, dev), to_device(idx.astype(np.int64), dev),
+        to_device(val, dev), to_device(dc, dev), ctx, height, width,
+    )
+
+
+def _to_host_async(frames: torch.Tensor):
+    """Start a device->host copy; returns (host tensor, event or None)."""
+    if frames.device.type != "cuda":
+        return frames, None
+    host = torch.empty(frames.shape, dtype=frames.dtype, pin_memory=True)
+    host.copy_(frames, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(frames.device))
+    return host, done
+
+
+def decode_video(
+    data: bytes,
+    width: int,
+    height: int,
+    frames: int,
+    cfg: CodecConfig | None = None,
+    ctx: TransformContext | None = None,
+    device=None,
+    positions: list[int] | None = None,
+    sync_offsets: list[int] | None = None,
+) -> np.ndarray:
+    """One-call decode of a complete bitstream -> (T, H, W) uint8, on
+    ``device`` (or ``ctx.device``).
+
+    `frames` is truncated to a GOP multiple (Decoder.java:34-36).
+    ``positions`` (per-GOP start bit offsets) and ``sync_offsets`` (per-GOP
+    compressed byte offsets), both from the encoder's index, let every host
+    core work: see decode_frame_range.
+    """
+    cfg = cfg or CodecConfig()
+    t = frames - frames % cfg.gop_size
+    if t == 0:
+        return np.empty((0, height, width), np.uint8)
+    return decode_frame_range(
+        data, width, height, 0, t, cfg, ctx, device, positions=positions,
+        sync_offsets=sync_offsets,
+    )
+
+
+def decode_frame_range(
+    data: bytes,
+    width: int,
+    height: int,
+    start: int,
+    stop: int,
+    cfg: CodecConfig | None = None,
+    ctx: TransformContext | None = None,
+    device=None,
+    positions: list[int] | None = None,
+    sync_offsets: list[int] | None = None,
+) -> np.ndarray:
+    """Random-access decode of the half-open frame range [start, stop).
+
+    Only the covering GOPs run the host entropy stage and the device
+    inverse transform.  The skipped prefix costs one inflate pass plus,
+    without ``positions``, a serial boundary scan (eg_scan).  With
+    ``sync_offsets`` the inflate itself runs GOP-parallel.
+
+    Returns (stop - start, H, W) pixels identical to the same slice of
+    decode_video's output; raises EOFError when the stream ends before
+    ``stop`` and ValueError on corrupt input.
+    """
+    cfg = cfg or CodecConfig()
+    ctx = ctx or TransformContext(cfg, device)
+    cfg.validate_geometry(width, height)
+    if not (0 <= start < stop):
+        raise ValueError(f"bad frame range [{start}, {stop})")
+    fpg = cfg.gop_size
+    g0, g1 = start // fpg, -(-stop // fpg)
+    cpg = width * height * fpg
+    try:
+        if sync_offsets is not None:
+            raw = entropy.parallel_inflate(data, sync_offsets)
+        else:
+            z = zlib.decompressobj()
+            raw = z.decompress(data) + z.flush()
+    except zlib.error as e:
+        raise ValueError(f"corrupt bitstream: {e}") from e
+    payload = np.frombuffer(raw, np.uint8)
+    if positions is not None:
+        if len(positions) < g1:
+            raise ValueError(f"index has {len(positions)} positions, need {g1}")
+        span = list(positions[g0:g1])
+    elif g0 == 0:
+        span = None  # parallel_chunks scans ahead of its workers
+    else:
+        pos, span = 0, []
+        try:
+            for g in range(g1):
+                if g >= g0:
+                    span.append(pos)
+                if g + 1 < g1:
+                    pos = entropy.scan_values(payload, cpg, pos)
+        except EOFError:
+            raise EOFError("bitstream too short for requested frame range")
+    out = np.empty(((g1 - g0) * fpg, height, width), np.uint8)
+    pending: collections.deque = collections.deque()
+
+    def drain_one() -> None:
+        k, host, done = pending.popleft()
+        if done is not None:
+            done.synchronize()
+        out[k * fpg : (k + 1) * fpg] = host.numpy()
+
+    try:
+        for k, (plane, ei, ev, _pos) in enumerate(entropy.parallel_chunks(
+            payload, cpg, g1 - g0, positions=span,
+        )):
+            frames_dev = _dispatch_planar4((plane, ei, ev), ctx, height, width)
+            pending.append((k, *_to_host_async(frames_dev)))
+            if len(pending) >= _WINDOW:
+                drain_one()
+    except EOFError:
+        raise EOFError("bitstream too short for requested frames")
+    while pending:
+        drain_one()
+    lo, hi = start - g0 * fpg, stop - g0 * fpg
+    if lo == 0 and hi == out.shape[0]:
+        return out
+    # Copy the trimmed slice: a view would pin up to gop_size-1 hidden
+    # frames per end alive and alias them under caller writes.
+    return np.ascontiguousarray(out[lo:hi])

@@ -1,0 +1,185 @@
+"""Streaming GOP encoder.
+
+The port's counterpart of ``dct3d_tpu.codec.encoder`` (encode(),
+encoder.c:88-293): frames stream through one GOP at a time; each GOP is
+transformed and bit-packed on the device (codec/transform.encode_step), the
+cross-GOP bit carry is chained on the device, and a single drainer thread
+copies each GOP's packed bytes to the host and deflates them into one zlib
+stream while the device works on the next GOP.
+
+The JAX encoder's budget ladder and overflow retry are gone: the port's
+pack buffers have the worst-case size and cannot overflow.
+"""
+
+from __future__ import annotations
+
+import collections
+from concurrent.futures import Future, ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from ..config import CodecConfig
+from . import entropy
+from .transform import EncodedGOP, TransformContext, encode_step, to_device
+
+_MAX_INFLIGHT = 3  # GOPs in flight before push() waits for the oldest
+
+
+class StreamingEncoder:
+    """Push frames in, get compressed bytes out.
+
+    Usage:
+        enc = StreamingEncoder(width, height, cfg, device="cuda")
+        for batch in frame_batches:        # (T, H, W) uint8, T % gop == 0
+            out.write(enc.push(batch))
+        out.write(enc.finish())
+
+    push() may return b"" while work is in flight; finish() flushes
+    everything.  Output bytes are always emitted in stream order.
+
+    ``carry`` = (code, bits) starts the Exp-Golomb payload with a partial
+    byte of ``bits`` (0..7) bits, e.g. another encoder's carry, so a stream
+    can continue where that encoder stopped.
+    """
+
+    def __init__(
+        self,
+        width: int,
+        height: int,
+        cfg: CodecConfig | None = None,
+        ctx: TransformContext | None = None,
+        device=None,
+        device_pack: bool = True,
+        carry: tuple[int, int] = (0, 0),
+    ) -> None:
+        if not device_pack:
+            raise NotImplementedError(
+                "device_pack=False (host Exp-Golomb encode) is not ported "
+                "(ROADMAP Queue 1: host encode path)"
+            )
+        self.cfg = cfg or CodecConfig()
+        self.cfg.validate_geometry(width, height)
+        self.width = width
+        self.height = height
+        self.ctx = ctx or TransformContext(self.cfg, device)
+        self.device = self.ctx.device
+        self.sink = entropy.make_sink(self.cfg)
+        self.sink.carry_code, self.sink.carry_bits = carry
+        # Single-thread drainer: serializes sink access and keeps output order
+        # while overlapping readback/DEFLATE with device compute.
+        self._drainer = ThreadPoolExecutor(max_workers=1)
+        self._out: collections.deque[Future] = collections.deque()
+        self._carry = tuple(
+            torch.tensor(c, dtype=torch.int64, device=self.device) for c in carry
+        )
+        # The drainer's device->host copies run on their own stream, after
+        # an event recorded on the producing stream: the current stream is
+        # per thread in torch, so the drainer never touches the producer's.
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+        #: absolute bit position after each GOP — the seekable stream index
+        #: (docs/FORMAT.md "index member"); complete once finish() returns.
+        self.gop_bit_ends: list[int] = []
+        self._abs_end = 0
+
+    # -- internal ------------------------------------------------------------
+
+    def _readback(self, gop: EncodedGOP, done) -> tuple[int, np.ndarray]:
+        """(total_bits, packed bytes through the partial last byte)."""
+        if self._copy_stream is None:
+            total_bits = int(gop.total_bits)
+            return total_bits, gop.packed[: total_bits // 8 + 1].numpy()
+        with torch.cuda.stream(self._copy_stream):
+            self._copy_stream.wait_event(done)
+            total_bits = int(gop.total_bits)  # synchronizes the copy stream
+            nbytes = total_bits // 8 + 1
+            host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            host.copy_(gop.packed[:nbytes], non_blocking=True)
+            self._copy_stream.synchronize()
+        return total_bits, host.numpy()
+
+    def _drain_gop(self, gop: EncodedGOP, done) -> bytes:
+        """Drainer thread: fetch one GOP's packed bytes and deflate them.
+        Holds the GOP's device tensors until their copy is done."""
+        total_bits, packed = self._readback(gop, done)
+        # Per-batch total_bits includes the carried partial byte's bits, so
+        # the absolute end chains as whole-bytes-so-far + batch bits.  The
+        # drainer runs one GOP at a time in stream order, so appending here
+        # yields the in-order index.
+        self._abs_end = ((self._abs_end >> 3) << 3) + total_bits
+        self.gop_bit_ends.append(self._abs_end)
+        # Per-GOP sync boundary: the parallel sink resets its window here so
+        # decode can inflate GOPs independently (the serial sink no-ops).
+        self.sink.gop_boundary()
+        return self.sink.push_packed(packed, total_bits)
+
+    def _collect(self, block: bool = False) -> bytes:
+        out = []
+        while self._out and (block or self._out[0].done()):
+            out.append(self._out.popleft().result())
+        return b"".join(out)
+
+    # -- public --------------------------------------------------------------
+
+    def push(self, frames: np.ndarray) -> bytes:
+        """Encode a (T, H, W) uint8 batch; T must be a GOP multiple.
+
+        Returns compressed bytes ready to append to the output stream (may
+        be empty — work is pipelined and DEFLATE buffers internally).
+        """
+        t = frames.shape[0]
+        gop_size = self.cfg.gop_size
+        if t % gop_size:
+            raise ValueError(
+                f"batch of {t} frames is not a multiple of GOP {gop_size}; "
+                "truncate (reference behavior, Encoder.java:39-40) or pad "
+                "upstream"
+            )
+        if frames.shape[1:] != (self.height, self.width):
+            raise ValueError("frame geometry mismatch")
+        for i in range(0, t, gop_size):
+            gop = encode_step(to_device(frames[i : i + gop_size], self.device),
+                              self.ctx, *self._carry)
+            self._carry = (gop.carry_code, gop.carry_bits)
+            done = None
+            if self._copy_stream is not None:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+            self._out.append(self._drainer.submit(self._drain_gop, gop, done))
+            # Backpressure: bound in-flight device buffers / host memory.
+            if len(self._out) > _MAX_INFLIGHT:
+                self._out[0].result()
+        return self._collect()
+
+    def finish(self) -> bytes:
+        """Flush pipeline + carry + DEFLATE tail.  Stream complete after;
+        releases the drainer and sink threads."""
+        self._out.append(self._drainer.submit(self.sink.finish))
+        out = self._collect(block=True)
+        self._drainer.shutdown(wait=True)
+        self.sink.close()
+        return out
+
+    @property
+    def gop_sync_offsets(self) -> list[int] | None:
+        """Per-GOP compressed byte sync offsets for parallel inflate
+        (entropy.parallel_inflate) — available after finish() with the
+        parallel sink; None for the serial reference-parity layout."""
+        return self.sink.sync_offsets()
+
+
+def encode_video(
+    frames: np.ndarray,
+    cfg: CodecConfig | None = None,
+    ctx: TransformContext | None = None,
+    device=None,
+) -> bytes:
+    """One-call encode of an in-memory (T, H, W) uint8 video on ``device``
+    (or ``ctx.device``).
+
+    Frame count is truncated to a GOP multiple (Encoder.java:39-40)."""
+    cfg = cfg or CodecConfig()
+    t = frames.shape[0] - frames.shape[0] % cfg.gop_size
+    enc = StreamingEncoder(frames.shape[2], frames.shape[1], cfg, ctx, device)
+    return enc.push(frames[:t]) + enc.finish()

@@ -1,0 +1,208 @@
+"""Device pipeline: frames <-> quantized zigzag coefficients <-> bits.
+
+The port's counterpart of ``dct3d_tpu.codec.transform`` (reference profile,
+8x8x8 cubes, float32):
+
+  encode step:  (T, H, W) uint8
+                -> K1: f32 cubes + exact int32 cube sums (ops/relayout.py)
+                -> (num_cubes, 512) @ (512, 512) f32 matmul
+                   [3D DCT + quantization + zigzag folded into the matrix]
+                -> round half away from zero, exact DC (ops/quant.py)
+                -> Exp-Golomb bit pack, K2 + K3 (ops/bitpack.py)
+                -> next GOP's carry, on the device
+  decode step:  nibble plane + exceptions + DC -> two f32 matmuls
+                -> K4: clamp, truncating cast, cubes -> frames
+
+The large matmuls stay ``torch.matmul``, as the JAX package leaves them to
+XLA; full float32 (no TF32) keeps quantized-integer parity with the
+float64 oracle.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import CodecConfig
+from ..ops import bitpack, dct, quant, relayout
+
+
+def _full_f32() -> None:
+    """Turn TF32 off for matmuls and convolutions (process-wide)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def _assert_full_f32() -> None:
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            "float32 matmul precision was lowered after the TransformContext "
+            "was built; quantized-integer parity needs full float32"
+        )
+
+
+def _check_supported(cfg: CodecConfig) -> None:
+    """Raise NotImplementedError for configurations the port lacks yet
+    (each names its ROADMAP Queue 1 item)."""
+    if (cfg.block_w, cfg.block_h, cfg.block_d) != (8, 8, 8):
+        raise NotImplementedError(
+            "only 8x8x8 cubes: other blocks need pack_bits and the K5 kernel "
+            "(ROADMAP Queue 1: pack_bits / 4x4x4 blocks)"
+        )
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            "only compute_dtype='float32' (ROADMAP Queue 1: bf16 profile)"
+        )
+    if cfg.transport_delta:
+        raise NotImplementedError(
+            "transport_delta is not ported (ROADMAP Queue 1: transport_delta)"
+        )
+
+
+def host_matrices(cfg: CodecConfig) -> dict[str, np.ndarray]:
+    """The float32 encode matrix and the even/odd coefficient-row halves of
+    the decode matrix, built in float64 on the host (ops/dct.py)."""
+    dec = dct.decode_matrix(cfg, np.float32)
+    return {
+        "enc_t": dct.encode_matrix(cfg, np.float32),
+        "dec_me": np.ascontiguousarray(dec[0::2]),
+        "dec_mo": np.ascontiguousarray(dec[1::2]),
+    }
+
+
+class TransformContext:
+    """The constant encode/decode matrices, as float32 tensors on ``device``.
+
+    ``device`` is required: "cuda" runs the kernels (and raises without a
+    card), "cpu" runs their plain versions.  Building a context turns TF32
+    off process-wide.
+    """
+
+    def __init__(self, cfg: CodecConfig | None, device,
+                 arrays: dict[str, np.ndarray] | None = None) -> None:
+        self.cfg = cfg or CodecConfig()
+        _check_supported(self.cfg)
+        if device is None:
+            raise ValueError("TransformContext needs an explicit device")
+        self.device = torch.device(device)
+        _full_f32()
+        arrays = host_matrices(self.cfg) if arrays is None else arrays
+        self.enc_t, self.dec_me, self.dec_mo = (
+            torch.tensor(np.asarray(arrays[k], np.float32), device=self.device)
+            for k in ("enc_t", "dec_me", "dec_mo")
+        )
+
+    @classmethod
+    def from_numpy(cls, arrays: dict[str, np.ndarray], cfg: CodecConfig | None,
+                   device) -> "TransformContext":
+        """A context from {"enc_t", "dec_me", "dec_mo"} arrays, e.g.
+        ``np.asarray`` of a JAX TransformContext's attributes."""
+        return cls(cfg, device, arrays)
+
+
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``device``; to a card through pinned memory
+    with a non-blocking copy on the current stream."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _quantize(cubes: torch.Tensor, sums: torch.Tensor, enc_t: torch.Tensor,
+              cfg: CodecConfig) -> torch.Tensor:
+    """(num_cubes, 512) f32 pixel cubes -> int32 quantized zigzag
+    coefficients.  DC (column 0, divisor 1) is the one coefficient where a
+    1-ulp f32 wobble can cross the rounding boundary against the float64
+    oracle, so it is replaced by the exact fixed-point quantizer of the
+    integer cube sums (ops/quant.exact_dc_quant; sums < 2^20 for 512 uint8
+    pixels)."""
+    _assert_full_f32()
+    scaled = cubes @ enc_t
+    # q = sign(x)*floor(|x| + bias): round half away from zero at bias 0.5
+    # (C roundf, encoder.c:53), a deadzone quantizer below it.
+    q = torch.trunc(scaled + torch.copysign(scaled.new_full((), cfg.quant_bias),
+                                            scaled)).to(torch.int32)
+    q[:, 0] = quant.exact_dc_quant(sums, cfg.cube_size, cfg.quant_bias)
+    return q
+
+
+def quantize_step(frames: torch.Tensor, ctx: TransformContext) -> torch.Tensor:
+    """(T, H, W) uint8 frames -> (num_cubes, 512) int32 quantized zigzag
+    coefficients, bit-identical to the float64 oracle's at test sizes."""
+    cubes, sums = relayout.frames_to_cubes(frames)
+    return _quantize(cubes, sums, ctx.enc_t, ctx.cfg)
+
+
+class EncodedGOP(NamedTuple):
+    """Device-side result of encoding one batch of frames."""
+
+    packed: torch.Tensor  # (nbytes,) uint8, bit-concatenated codewords
+    total_bits: torch.Tensor  # () int64, valid bit count in `packed`
+    carry_code: torch.Tensor  # () int64, trailing partial byte, right-aligned
+    carry_bits: torch.Tensor  # () int64, 0..7
+    overflow: bool  # always False: buffers are worst-case sized
+
+
+def encode_step(frames: torch.Tensor, ctx: TransformContext,
+                carry_code: torch.Tensor, carry_bits: torch.Tensor) -> EncodedGOP:
+    """Encode a (T, H, W) uint8 frame batch into packed Exp-Golomb bytes.
+
+    carry_code/carry_bits: the partial trailing byte of the previous call
+    (0-d int64 tensors on the device, value right-aligned in carry_bits
+    bits), continuing the bitstream across GOPs like the C encoder's buffer
+    carry (encoder.c:266-271).  The returned carry is computed on the
+    device, so consecutive GOPs chain without a host round trip.
+    """
+    q = quantize_step(frames, ctx)
+    packed, total_bits, tail_byte, overflow = bitpack.pack_values(
+        q.reshape(-1), carry_code, carry_bits,
+        max_width=bitpack.max_codeword_bits(ctx.cfg.cube_size),
+    )
+    rem = total_bits % 8
+    new_code = torch.where(rem > 0, tail_byte >> (8 - rem), 0)
+    return EncodedGOP(packed, total_bits, new_code, rem, overflow)
+
+
+def _dequant_matmul(ce: torch.Tensor, co: torch.Tensor, dec_me: torch.Tensor,
+                    dec_mo: torch.Tensor) -> torch.Tensor:
+    """Inverse transform as even-coefficient + odd-coefficient half matmuls,
+    summed in that order like the JAX package's every decode path (so the
+    pixels stay within its <= 1 LSB envelope)."""
+    _assert_full_f32()
+    return ce.to(torch.float32) @ dec_me + co.to(torch.float32) @ dec_mo
+
+
+def planar4_to_frames(plane: torch.Tensor, exc_idx: torch.Tensor,
+                      exc_val: torch.Tensor, dc: torch.Tensor,
+                      ctx: TransformContext, height: int,
+                      width: int) -> torch.Tensor:
+    """Decode step from the packed-nibble plane -> (T, H, W) uint8 frames.
+
+    plane: (cubes * 256,) uint8, two coefficients per byte (low nibble =
+    even index), sign-extended from 4 bits.  exc_idx (int64) / exc_val
+    (int32): flat coefficient index and true value of every non-DC value
+    outside [-8, 7].  dc: (cubes,) int32 dense DC, spliced as column 0 of
+    the even half (decoder._split_dc_flat).
+    """
+    hc = ctx.cfg.cube_size // 2
+    half = plane.shape[0]
+    b = plane.to(torch.int32)
+    # One slot past the plane takes the other parity's exceptions and is
+    # cut off: a sync-free split (boolean masks would wait for the device).
+    lo = torch.empty(half + 1, dtype=torch.int32, device=plane.device)
+    hi = torch.empty(half + 1, dtype=torch.int32, device=plane.device)
+    lo[:half] = ((b & 0xF) ^ 8) - 8
+    hi[:half] = (((b >> 4) & 0xF) ^ 8) - 8
+    odd = (exc_idx & 1) == 1
+    lo.index_put_((torch.where(odd, half, exc_idx >> 1),), exc_val)
+    hi.index_put_((torch.where(odd, exc_idx >> 1, half),), exc_val)
+    lo2 = lo[:half].reshape(-1, hc)
+    lo2[:, 0] = dc
+    pixels = _dequant_matmul(lo2, hi[:half].reshape(-1, hc), ctx.dec_me,
+                             ctx.dec_mo)
+    return relayout.cubes_to_frames(pixels, height, width)

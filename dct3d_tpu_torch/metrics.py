@@ -1,0 +1,25 @@
+"""Quality / rate metrics (copy of ``dct3d_tpu.metrics``).
+
+The reference has no quantitative quality measurement at all — assessment is
+visual (reference README.md:26-27; SURVEY.md §5 "Metrics").  PSNR and
+bits-per-pixel are the BASELINE.json surface, so they are first-class here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def psnr(a: np.ndarray, b: np.ndarray, peak: float = 255.0) -> float:
+    """Peak signal-to-noise ratio in dB between two uint8 videos/frames."""
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    mse = float(np.mean((a - b) ** 2))
+    if mse == 0.0:
+        return float("inf")
+    return 10.0 * np.log10(peak * peak / mse)
+
+
+def bits_per_pixel(stream_bytes: int, width: int, height: int, frames: int) -> float:
+    """Compressed bits per source pixel."""
+    return 8.0 * stream_bytes / (width * height * frames)

@@ -1,0 +1,99 @@
+"""Device-side parallel bit packing of Exp-Golomb codewords.
+
+The port's counterpart of ``dct3d_tpu.ops.bitpack.pack_values``, in five
+steps per batch of whole 256-value groups:
+
+  1. group geometry — each group's bit count and start bit (one cumsum over
+     the groups, plain torch as it is plain XLA in the JAX package), its
+     start word and its bit phase within that word;
+  2. level 1, K2 (ops/group_pack.py): each group packed at its phase;
+  3. the carry — the previous batch's partial byte — ORed into word 0;
+  4. level 2, K3 (ops/splice.py): groups placed at their start words;
+  5. the tail byte (the byte holding the last bit, the next batch's carry
+     source) read from the finished buffer, on the device.
+
+The JAX package caps its buffers at a bit budget to give XLA small static
+shapes, flags overflow and retries.  Here both buffers have the worst-case
+size (about 57 MB of group rows and 56 MB of stream per 1080p GOP), so
+nothing overflows and there is no retry; the bytes are the same.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import expgolomb, group_pack, splice
+
+
+def max_codeword_bits(cube_size: int) -> int:
+    """Worst-case Exp-Golomb field width for quantized 3D-DCT coefficients
+    of 8-bit video: |c| <= 255*sqrt(cube) (orthonormal basis; divisors only
+    shrink it), code number m+1 <= 2*|c|+2."""
+    max_code = 2 * int(np.ceil(255.0 * np.sqrt(cube_size))) + 2
+    return 2 * max_code.bit_length() - 1
+
+
+def worst_case_w_words(group: int, max_width: int = 32) -> int:
+    """Per-group buffer words that can never overflow."""
+    return -(-group * min(max_width, 32) // 32) + 2
+
+
+def stream_words(n: int, max_width: int) -> int:
+    """Stream buffer words that can never overflow: a carry of at most 7
+    bits, then n codewords of at most max_width bits."""
+    return (7 + n * max_width + 31) // 32
+
+
+def geometry(v2: torch.Tensor, carry_bits: torch.Tensor):
+    """Group bit geometry of (g, 256) values after a carry of carry_bits
+    bits: (gstart, gend) int64, each group's first bit and end bit
+    (exclusive).  Start word = gstart >> 5, phase = gstart & 31."""
+    _, wid = expgolomb.codewords(v2)
+    gbits = wid.sum(1)
+    gstart = torch.cumsum(gbits, 0) - gbits + carry_bits
+    return gstart, gstart + gbits
+
+
+def or_carry_lead(buf_groups: torch.Tensor, carry_code: torch.Tensor,
+                  carry_bits: torch.Tensor) -> None:
+    """OR the carry's bits into word 0 of group 0, in place.  They live at
+    [0, carry_bits) of word 0 and group 0 starts at bit carry_bits, so
+    nothing overlaps.  The shift is masked to dodge a shift by 32 when
+    carry_bits == 0, which `where` discards."""
+    lead = torch.where(carry_bits > 0, carry_code << ((32 - carry_bits) & 31), 0)
+    buf_groups[0, :1].bitwise_or_(group_pack.to_word_bits(lead.reshape(1)))
+
+
+def pack_values(values: torch.Tensor, carry_code: torch.Tensor,
+                carry_bits: torch.Tensor, max_width: int = 32):
+    """Pack int32 coefficients after a leading partial byte.
+
+    values: (n,) int32 with n a nonzero multiple of 256, codewords at most
+    ``max_width`` (<= 32) bits.  carry_code / carry_bits: 0-d int64 tensors
+    on the same device, the carry's value right-aligned in carry_bits
+    (0..7) bits; the stream starts with those bits.
+
+    Returns (buf, total_bits, tail_byte, overflow) like the JAX function:
+    buf the (4 * nwords,) uint8 MSB-first stream, zero past total_bits;
+    total_bits and tail_byte 0-d int64 tensors on the device (tail_byte is
+    the byte holding bit total_bits - 1); overflow always False.
+    """
+    n, group = values.numel(), group_pack.GROUP
+    if not n or n % group:
+        raise ValueError(f"pack_values needs whole {group}-value groups, got {n}")
+    if n * max_width >= 1 << 31:
+        # Bit offsets are int32 in the kernels (a 1080p GOP is ~0.45 Gbit
+        # worst case).
+        raise ValueError(f"batch of {n} codewords can exceed 2^31 bits")
+    v2 = values.reshape(-1, group)
+    gstart, gend = geometry(v2, carry_bits)
+    buf_groups = group_pack.group_pack_values(
+        v2, (gstart & 31).to(torch.int32), worst_case_w_words(group, max_width)
+    )
+    or_carry_lead(buf_groups, carry_code, carry_bits)
+    buf = splice.splice(buf_groups, (gstart >> 5).to(torch.int32),
+                        gend.to(torch.int32), stream_words(n, max_width))
+    total_bits = gend[-1]
+    tail_byte = buf.index_select(0, ((total_bits - 1) >> 3).reshape(1))
+    return buf, total_bits, tail_byte[0].to(torch.int64), False

@@ -1,0 +1,148 @@
+"""The PyTorch port's host modules against the JAX package's originals.
+
+The port (dct3d_tpu_torch) carries its own copies of the NumPy host code it
+needs, because importing dct3d_tpu loads jax; these tests pin each copy to
+its original, and check that the port never imports jax.
+"""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import synthetic_video
+from dct3d_tpu import config as j_config
+from dct3d_tpu import metrics as j_metrics
+from dct3d_tpu.codec import transform as j_transform
+from dct3d_tpu.ops import dct as j_dct
+from dct3d_tpu.ops import quant as j_quant
+from dct3d_tpu.ops import zigzag as j_zigzag
+from dct3d_tpu_torch import config, metrics
+from dct3d_tpu_torch.codec import encoder, transform
+from dct3d_tpu_torch.ops import dct, quant, zigzag
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "dct3d_tpu_torch")
+
+
+def test_config_defaults_equal():
+    ours, theirs = config.CodecConfig(), j_config.CodecConfig()
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    for prop in ("stream_budget_bits_per_value", "gop_size", "cube_size",
+                 "face_size"):
+        assert getattr(ours, prop) == getattr(theirs, prop)
+    assert ours.cubes_per_gop(64, 48) == theirs.cubes_per_gop(64, 48)
+
+
+@pytest.mark.parametrize("dims", [(8, 8, 8), (4, 4, 4), (8, 4, 2)])
+def test_zigzag_tables_equal(dims):
+    for fn in ("diagonal_slices", "zigzag_flat_indices",
+               "inverse_zigzag_flat_indices"):
+        a, b = getattr(zigzag, fn)(*dims), getattr(j_zigzag, fn)(*dims)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("strength", [1, 5, 10])
+def test_quant_divisors_equal(strength):
+    np.testing.assert_array_equal(quant.quant_divisors(8, 8, 8, strength),
+                                  j_quant.quant_divisors(8, 8, 8, strength))
+
+
+@pytest.mark.parametrize("strength", [1, 5, 10])
+def test_dct_matrices_bit_equal(strength):
+    cfg = config.CodecConfig(quant_strength=strength)
+    jcfg = j_config.CodecConfig(quant_strength=strength)
+    for fn in ("encode_matrix", "decode_matrix"):
+        a, b = getattr(dct, fn)(cfg), getattr(j_dct, fn)(jcfg)
+        assert a.dtype == b.dtype == np.float32
+        assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("bias", [0.5, 0.3])
+def test_exact_dc_quant_agrees(bias):
+    """The copied exact-DC quantizer on torch int32 sums equals the
+    original on NumPy, and floor(S/sqrt(512) + bias), on 100k sums."""
+    sums = np.random.default_rng(3).integers(0, 512 * 255 + 1, 100_000)
+    sums[:2] = (0, 512 * 255)
+    got = quant.exact_dc_quant(torch.from_numpy(sums.astype(np.int32)), 512, bias)
+    assert got.dtype == torch.int32
+    want = j_quant.exact_dc_quant(sums.astype(np.int64), 512, bias)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), np.floor(sums / np.sqrt(512.0) + bias).astype(np.int64))
+
+
+def test_metrics_equal():
+    a = synthetic_video(8, 16, 16, seed=1)
+    b = synthetic_video(8, 16, 16, seed=2)
+    assert metrics.psnr(a, b) == j_metrics.psnr(a, b)
+    assert metrics.psnr(a, a) == float("inf")
+    assert metrics.bits_per_pixel(1234, 64, 48, 8) == j_metrics.bits_per_pixel(1234, 64, 48, 8)
+
+
+def test_context_from_jax_arrays_equals_own_build():
+    """A context built from a JAX TransformContext's arrays is bit-identical
+    to the port's own float64 host build, and encodes identical streams."""
+    jctx = j_transform.TransformContext(j_config.CodecConfig())
+    arrays = {k: np.asarray(getattr(jctx, k)) for k in ("enc_t", "dec_me", "dec_mo")}
+    from_jax = transform.TransformContext.from_numpy(arrays, None, "cpu")
+    own = transform.TransformContext(None, "cpu")
+    for k in arrays:
+        a, b = getattr(from_jax, k), getattr(own, k)
+        assert a.dtype == b.dtype == torch.float32
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+    clip = synthetic_video(8, 32, 32)
+    assert encoder.encode_video(clip, ctx=from_jax) == encoder.encode_video(clip, ctx=own)
+
+
+def _port_modules():
+    for dirpath, _, files in os.walk(PKG):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+
+
+def test_port_imports_no_jax_subprocess():
+    """Importing every module of the port loads neither jax nor the JAX
+    package."""
+    mods = []
+    for path in _port_modules():
+        rel = os.path.relpath(path, ROOT)[: -len(".py")].replace(os.sep, ".")
+        mods.append(rel[: -len(".__init__")] if rel.endswith(".__init__") else rel)
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dct3d_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert len(mods) >= 16
+
+
+@pytest.mark.parametrize("path", sorted(_port_modules()) + [os.path.join(ROOT, "chip_smoke.py")],
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_source_imports_no_jax(path):
+    """AST scan: no import statement of the port (or of chip_smoke.py)
+    names jax or the JAX package, not even inside a function."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in ("jax", "jaxlib", "dct3d_tpu"), (path, n)
