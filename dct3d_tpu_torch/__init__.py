@@ -2,14 +2,19 @@
 
 A second package beside the JAX one, for one NVIDIA H100 (Hopper, sm_90a).
 It encodes and decodes reference-profile streams (signed Exp-Golomb inside
-zlib) byte-compatible with ``dct3d_tpu``: the transform is torch.matmul in
-full float32, and the four device kernels of the path are hand-written
-CUDA (csrc/, built with nvcc on first use, see kernels.py):
+zlib) and turbo-profile containers (codec/turbo.py: nibble plane, dense DC
+and exceptions, compressed per GOP) byte-compatible with ``dct3d_tpu``:
+the transform is torch.matmul in full float32, and the device kernels of
+both paths are hand-written CUDA (csrc/, built with nvcc on first use, see
+kernels.py):
 
-  K1 frames -> cubes    ops/relayout.py    csrc/relayout.cu
-  K2 group bit pack     ops/group_pack.py  csrc/group_pack.cu
-  K3 group splice       ops/splice.py      csrc/splice.cu
-  K4 cubes -> frames    ops/relayout.py    csrc/relayout.cu
+  K1 frames -> cubes         ops/relayout.py    csrc/relayout.cu   both
+  K2 group bit pack          ops/group_pack.py  csrc/group_pack.cu reference
+  K3 group splice            ops/splice.py      csrc/splice.cu     reference
+  K4 cubes -> frames         ops/relayout.py    csrc/relayout.cu   both
+  K6 exception compaction    ops/exc_pack.py    csrc/exc_pack.cu   turbo
+  K7 plane -> wire           ops/relayout.py    csrc/wire.cu       turbo
+  K8 wire -> plane           ops/relayout.py    csrc/wire.cu       turbo
 
 Every public entry point takes an explicit ``device`` (or a
 ``TransformContext`` that holds one): on "cuda" the kernels run, on "cpu"
@@ -19,6 +24,10 @@ their plain PyTorch versions.  The package imports torch and never jax.
 from .codec.decoder import decode_frame_range, decode_video
 from .codec.encoder import StreamingEncoder, encode_video
 from .codec.transform import TransformContext
+from .codec.turbo import (
+    TurboEncoder, decode_turbo_container, decode_turbo_range,
+    encode_turbo_video,
+)
 from .config import DEFAULT_CONFIG, CodecConfig
 from .metrics import bits_per_pixel, psnr
 
@@ -27,9 +36,13 @@ __all__ = [
     "DEFAULT_CONFIG",
     "StreamingEncoder",
     "TransformContext",
+    "TurboEncoder",
     "bits_per_pixel",
     "decode_frame_range",
+    "decode_turbo_container",
+    "decode_turbo_range",
     "decode_video",
+    "encode_turbo_video",
     "encode_video",
     "psnr",
 ]

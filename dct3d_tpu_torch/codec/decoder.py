@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import CodecConfig
+from ..ops import relayout
 from . import entropy
 from .transform import TransformContext, planar4_to_frames, to_device
 
@@ -48,13 +49,25 @@ def _split_dc_flat(plane: np.ndarray, idx: np.ndarray, val: np.ndarray,
 
 def _dispatch_planar4(planar, ctx: TransformContext, height: int,
                       width: int) -> torch.Tensor:
-    """Upload one GOP's (plane, exc_idx, exc_val) and run the device step."""
-    plane, idx, val = planar
-    dc, idx, val = _split_dc_flat(plane, idx, val, ctx.cfg.cube_size)
+    """Upload one GOP and run the device step.
+
+    A flat 3-tuple (plane, exc_idx, exc_val) gets its dense DC split off on
+    the host (_split_dc_flat).  A 4-tuple (wire, dc, exc_idx, exc_val) is a
+    turbo member (codec/turbo._parse_payload(split_dc=True)): the (cube/2,
+    cubes) wire plane goes up as it is and K8 turns it into the flat plane
+    on the device.  Both then run the same planar4_to_frames."""
     dev = ctx.device
+    if len(planar) == 4:
+        wire, dc, idx, val = planar
+        plane = relayout.wire_to_plane(to_device(wire, dev)).reshape(-1)
+    else:
+        plane, idx, val = planar
+        dc, idx, val = _split_dc_flat(plane, idx, val, ctx.cfg.cube_size)
+        plane = to_device(plane, dev)
     return planar4_to_frames(
-        to_device(plane, dev), to_device(idx.astype(np.int64), dev),
-        to_device(val, dev), to_device(dc, dev), ctx, height, width,
+        plane, to_device(idx.astype(np.int64, copy=False), dev),
+        to_device(val.astype(np.int32, copy=False), dev), to_device(dc, dev), ctx,
+        height, width,
     )
 
 

@@ -299,6 +299,16 @@ class ParallelDeflateSink:
         self._pool.shutdown(wait=True)
 
 
+def resolve_workers(deflate_workers: int) -> int:
+    """cfg.deflate_workers -> a concrete thread count: 0 means serial
+    (1 worker), negative means all cores but one, N>0 means exactly N.
+    Used by the turbo encoder; make_sink keeps its 0-means-DeflateSink
+    special case for reference-parity stream layout."""
+    if deflate_workers < 0:
+        return max(1, (os.cpu_count() or 2) - 1)
+    return max(1, deflate_workers)
+
+
 def make_sink(cfg) -> DeflateSink | ParallelDeflateSink:
     """Sink per config: 0 workers = serial reference-parity stream."""
     if cfg.deflate_workers == 0:

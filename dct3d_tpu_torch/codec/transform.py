@@ -63,12 +63,17 @@ def _check_supported(cfg: CodecConfig) -> None:
         )
 
 
+_MATRICES = ("enc_t", "enc_t_pair", "dec_me", "dec_mo")
+
+
 def host_matrices(cfg: CodecConfig) -> dict[str, np.ndarray]:
-    """The float32 encode matrix and the even/odd coefficient-row halves of
-    the decode matrix, built in float64 on the host (ops/dct.py)."""
+    """The float32 encode matrix, its pair-permuted twin (turbo profile),
+    and the even/odd coefficient-row halves of the decode matrix, built in
+    float64 on the host (ops/dct.py)."""
     dec = dct.decode_matrix(cfg, np.float32)
     return {
         "enc_t": dct.encode_matrix(cfg, np.float32),
+        "enc_t_pair": dct.encode_matrix_pair(cfg, np.float32),
         "dec_me": np.ascontiguousarray(dec[0::2]),
         "dec_mo": np.ascontiguousarray(dec[1::2]),
     }
@@ -91,26 +96,31 @@ class TransformContext:
         self.device = torch.device(device)
         _full_f32()
         arrays = host_matrices(self.cfg) if arrays is None else arrays
-        self.enc_t, self.dec_me, self.dec_mo = (
+        self.enc_t, self.enc_t_pair, self.dec_me, self.dec_mo = (
             torch.tensor(np.asarray(arrays[k], np.float32), device=self.device)
-            for k in ("enc_t", "dec_me", "dec_mo")
+            for k in _MATRICES
         )
 
     @classmethod
     def from_numpy(cls, arrays: dict[str, np.ndarray], cfg: CodecConfig | None,
                    device) -> "TransformContext":
-        """A context from {"enc_t", "dec_me", "dec_mo"} arrays, e.g.
-        ``np.asarray`` of a JAX TransformContext's attributes."""
+        """A context from {"enc_t", "enc_t_pair", "dec_me", "dec_mo"}
+        arrays, e.g. ``np.asarray`` of a JAX TransformContext's
+        attributes."""
         return cls(cfg, device, arrays)
 
 
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array -> tensor on ``device``; to a card through pinned memory
-    with a non-blocking copy on the current stream."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+    with a non-blocking copy on the current stream.  Read-only arrays (views
+    of decompressed bytes) are copied, never aliased."""
+    arr = np.ascontiguousarray(arr)
     if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+        host = torch.empty(arr.shape, dtype=getattr(torch, arr.dtype.name),
+                           pin_memory=True)
+        host.numpy()[...] = arr
+        return host.to(device, non_blocking=True)
+    return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
 
 
 def _quantize(cubes: torch.Tensor, sums: torch.Tensor, enc_t: torch.Tensor,

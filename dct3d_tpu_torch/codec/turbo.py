@@ -1,0 +1,564 @@
+"""Turbo (planar) profile: block-compressed planes, no Exp-Golomb anywhere.
+
+The port's counterpart of ``dct3d_tpu.codec.turbo`` for one device and
+grayscale video.  The wire carries the codec's device transport format —
+a packed-nibble plane of quantized zigzag coefficients, a dense DC stream
+and a sparse exception list — compressed per GOP:
+
+  encode step:  K1 -> f32 matmul with the pair-permuted encode matrix
+                -> exact-DC quantize -> nibble pack -> K7 (plane -> wire)
+                -> K6 (exception tables), all on the device;
+  host drain:   tables -> sorted exception list -> four compressed streams
+                -> one D3MH member (type 5) per GOP;
+  decode:       host decompression (GOP-parallel) -> K8 (wire -> plane)
+                -> the reference profile's planar4_to_frames (K4).
+
+Pixels are identical to the reference profile's decode: the quantized
+integers are the same and so is the inverse transform.  Only the container
+differs.  A GOP whose exceptions exceed FALLBACK_EXC_FRAC of its values is
+also encoded as a reference-profile member, and the smaller one ships.
+
+Wire format (docs/FORMAT.md): payload = four length-prefixed compressed
+streams (coefficient-pair-major nibble plane, dense DC deltas int16,
+exception-index deltas int32, exception values int16).  Streams are zstd
+when cfg.turbo_codec == "zstd" and the zstandard module imports, else zlib
+at cfg.zlib_level; decode sniffs each stream's magic.
+
+Not ported yet (ROADMAP Queue 1): the sharded encoder and decoder, the RGB
+functions, checkpointing, and the CLI flags.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import os
+import struct
+import sys
+import threading
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterable, NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import CodecConfig
+from ..ops import exceptions, relayout
+from ..parallel.multihost import (
+    MEMBER_INDEX, MEMBER_TEMPORAL, _member, split_members,
+)
+from . import entropy
+from .decoder import _dispatch_planar4, _to_host_async, decode_video
+from .encoder import encode_video
+from .transform import TransformContext, _quantize, to_device
+
+try:  # optional: smaller and faster than DEFLATE on the nibble plane
+    import zstandard as _zstd
+except ImportError:  # pragma: no cover
+    _zstd = None
+
+#: every zstd frame starts with this magic; zlib streams start 0x78
+_ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
+
+MEMBER_TURBO = 5
+
+#: Per-GOP escape hatch for content the nibble wire degenerates on
+#: (near-lossless quants flood the exception streams).  When a GOP's
+#: exception count crosses this fraction of its coefficients, the encoder
+#: also builds the GOP as a reference-profile member and ships whichever
+#: is smaller, tagged with the reference member type.
+FALLBACK_EXC_FRAC = 0.02
+#: turbo member type -> its reference-profile fallback member type
+_FALLBACK_TYPE = {MEMBER_TURBO: MEMBER_TEMPORAL}
+_REF_TYPES = frozenset(_FALLBACK_TYPE.values())
+
+_RETRY_SLOTS = 256  # exception slots per group that cannot overflow
+_WINDOW = 3  # decode: GOPs in flight on the device before the oldest drains
+
+
+def _warn_fallback_once(already: bool) -> bool:
+    """One note per encoder when the wire degenerates; returns the new
+    warned flag."""
+    if not already:
+        print(
+            "note: turbo wire degenerate on this content (exceptions "
+            f"above {FALLBACK_EXC_FRAC:.0%} of coefficients); affected "
+            "GOPs ship as reference-profile members (decode "
+            "auto-routes per member)", file=sys.stderr,
+        )
+    return True
+
+
+def _pick_member(raw_gop: np.ndarray, payload: bytes, n_exc: int, t: int,
+                 member_type: int, cfg: CodecConfig, ctx, warn) -> bytes:
+    """Emit the GOP as a turbo member, or as a reference-profile member
+    when the turbo wire degenerates (see FALLBACK_EXC_FRAC).  The probe
+    compares actual encoded sizes."""
+    if n_exc <= FALLBACK_EXC_FRAC * raw_gop.size:
+        return _member(payload, t, member_type)
+    # Serial sink: deterministic reference-layout bytes regardless of the
+    # caller's deflate worker pool.
+    ref = encode_video(raw_gop, dataclasses.replace(cfg, deflate_workers=0),
+                       ctx)
+    if len(ref) < len(payload):
+        warn()
+        return _member(ref, t, _FALLBACK_TYPE[member_type])
+    return _member(payload, t, member_type)
+
+
+class TurboGOP(NamedTuple):
+    """Device-side result of the turbo encode step for one GOP."""
+
+    plane: torch.Tensor  # (cube/2, cubes) uint8 wire, or (n/2,) flat plane
+    dc: torch.Tensor  # (cubes,) int16 dense DC
+    lidx: torch.Tensor  # (g, slots) uint8 exception lanes
+    vals: torch.Tensor  # (g, slots) int16 exception values
+    counts: torch.Tensor  # (g,) int32 exceptions per group
+    overflow: torch.Tensor  # () bool, some group exceeded its slots
+
+
+def _plane_and_tables(qp: torch.Tensor, slots: int,
+                      wire: bool = False) -> TurboGOP:
+    """Coefficients -> (nibble plane, dense DC, exception tables).
+
+    qp: (num_cubes, cube) quantized coefficients in PAIR-PERMUTED column
+    order (even zigzag indices first, then odd; ops/dct.
+    encode_matrix_pair), so the two nibble halves are contiguous slices and
+    the pack is elementwise.  DC (column 0) ships densely and is excluded
+    from the exception tables, which index the permuted flat order (the
+    host converts back with _expand_pair).
+
+    wire=True emits the plane in the wire's (cube/2, cubes)
+    coefficient-pair-major layout (K7); wire=False keeps the flat
+    transport layout."""
+    cube = qp.shape[-1]
+    half = cube // 2
+    qe, qo = qp[:, :half], qp[:, half:]
+    plane = ((qe & 0xF) | ((qo & 0xF) << 4)).to(torch.uint8)
+    plane = relayout.plane_to_wire(plane) if wire else plane.reshape(-1)
+    dc = qe[:, 0].to(torch.int16)
+    lidx, vals, counts, overflow = exceptions.compact_exceptions(
+        qp.reshape(-1), slots=slots, dc_stride=cube
+    )
+    return TurboGOP(plane, dc, lidx, vals, counts, overflow)
+
+
+def encode_step_turbo(frames: torch.Tensor, ctx: TransformContext,
+                      slots: int = exceptions.DEFAULT_SLOTS,
+                      wire: bool = False) -> TurboGOP:
+    """(T, H, W) uint8 frames on ctx.device -> TurboGOP.
+
+    The quantized integers are those of the reference profile
+    (transform.quantize_step) with the columns in pair order: the
+    pair-permuted matrix has the same column values, and DC takes the same
+    exact quantizer."""
+    cubes, sums = relayout.frames_to_cubes(frames)
+    qp = _quantize(cubes, sums, ctx.enc_t_pair, ctx.cfg)
+    return _plane_and_tables(qp, slots, wire=wire)
+
+
+def _expand_pair(lidx, vals, counts, cube: int):
+    """Host half: tables over the PAIR-PERMUTED flat order -> sorted
+    original-zigzag-order flat (idx, val) lists.
+
+    Permuted flat p = c*cube + pk maps to zigzag j = 2*pk for
+    pk < cube/2, else 2*(pk - cube/2) + 1."""
+    p_idx, val = exceptions.expand_exceptions_np(
+        np.asarray(lidx), np.asarray(vals), np.asarray(counts)
+    )
+    half = cube // 2
+    c, pk = np.divmod(p_idx, cube)
+    j = np.where(pk < half, 2 * pk, 2 * (pk - half) + 1)
+    idx = c * cube + j
+    order = np.argsort(idx)
+    return idx[order], val[order]
+
+
+def _compress(data, cfg: CodecConfig) -> bytes:
+    """One wire stream: zstd when configured and installed, else zlib."""
+    if cfg.turbo_codec == "zstd" and _zstd is not None:
+        # The checksum gives the zstd wire the bit-flip detection that
+        # zlib's adler32 gives the zlib wire.
+        return _zstd.ZstdCompressor(
+            level=cfg.turbo_zstd_level, write_checksum=True
+        ).compress(data)
+    return zlib.compress(data, cfg.zlib_level)
+
+
+def _decompress(buf: bytes) -> bytes:
+    """Per-stream codec sniff: either wire reads here.  Raises ValueError
+    on corrupt data (both codecs)."""
+    if buf[:4] == _ZSTD_MAGIC:
+        if _zstd is None:  # pragma: no cover
+            raise RuntimeError(
+                "zstd-coded turbo member, but the zstandard module is not "
+                "installed (re-encode with CodecConfig(turbo_codec='zlib'))"
+            )
+        try:
+            return _zstd.ZstdDecompressor().decompress(buf)
+        except _zstd.ZstdError as e:
+            raise ValueError(f"corrupt turbo stream: {e}") from e
+    try:
+        return zlib.decompress(buf)
+    except zlib.error as e:
+        raise ValueError(f"corrupt turbo stream: {e}") from e
+
+
+def _member_streams(plane: np.ndarray, dc: np.ndarray, idx: np.ndarray,
+                    val: np.ndarray, cube: int,
+                    wire: bool = False) -> list[np.ndarray]:
+    """The four raw streams of a member payload, before compression.
+
+    The nibble plane is stored COEFFICIENT-pair-major: byte [jj, c] packs
+    coefficients (2jj, 2jj+1) of cube c.  Exception indices are stored in
+    the same coefficient-major order as sorted deltas; DC as deltas.
+
+    wire=True: ``plane`` already is the (cube/2, cubes) wire layout;
+    wire=False: it is the flat transport plane and is transposed here."""
+    if wire:
+        wire_plane = np.ascontiguousarray(plane)
+        cubes = wire_plane.shape[1]
+    else:
+        cubes = plane.size * 2 // cube
+        wire_plane = np.ascontiguousarray(plane.reshape(cubes, cube // 2).T)
+    idx = np.asarray(idx, np.int64)
+    j = idx % cube
+    c = idx // cube
+    # Coefficient-pair-major order = stable sort by the pair key alone:
+    # the incoming idx is cube-major ascending, so within one pair the
+    # (cube, parity) order is already right.
+    pair = j >> 1
+    key_dtype = np.uint8 if cube <= 512 else np.uint16
+    order = np.argsort(pair.astype(key_dtype), kind="stable")
+    i2 = ((pair * cubes + c) * 2 + (j & 1))[order]
+    didx = np.diff(i2, prepend=np.int64(0)).astype(np.int32)
+    dc = np.asarray(dc, np.int16)
+    ddc = np.diff(dc, prepend=np.int16(0)).astype(np.int16)  # |dc| <= 5771
+    return [wire_plane.reshape(-1), ddc, didx,
+            np.ascontiguousarray(np.asarray(val)[order], np.int16)]
+
+
+def _member_payload(plane: np.ndarray, dc: np.ndarray, idx: np.ndarray,
+                    val: np.ndarray, cfg: CodecConfig,
+                    wire: bool = False) -> bytes:
+    """Member payload: the four streams of _member_streams, each compressed
+    and length-prefixed."""
+    parts = [_compress(s, cfg) for s in _member_streams(
+        plane, dc, idx, val, cfg.cube_size, wire)]
+    head = struct.pack("<IIII", *(len(p) for p in parts))
+    return head + b"".join(parts)
+
+
+def _parse_payload(payload: bytes, cube: int, wire: bool = False,
+                   split_dc: bool = False):
+    """Wire payload -> (plane, exception idx, exception val) with the dense
+    DC stream merged back into the exception list.
+
+    wire=False returns the flat transport plane (host transpose); wire=True
+    returns the raw (cube/2, cubes) wire layout, for K8 on the device.
+    split_dc=True (wire only) skips the merge and returns (plane, dc int32,
+    idx, val), the 4-tuple decoder._dispatch_planar4 takes."""
+    if len(payload) < 16:
+        raise EOFError("torn turbo member (truncated header)")
+    a, b, c, d = struct.unpack_from("<IIII", payload, 0)
+    if 16 + a + b + c + d > len(payload):
+        raise EOFError(
+            "torn turbo member (payload shorter than its stream lengths)"
+        )
+    o = 16
+    wire_plane = np.frombuffer(_decompress(payload[o : o + a]), np.uint8)
+    o += a
+    ddc = np.frombuffer(_decompress(payload[o : o + b]), np.int16)
+    dc = np.cumsum(ddc.astype(np.int32)).astype(np.int16)
+    o += b
+    didx = np.frombuffer(_decompress(payload[o : o + c]), np.int32)
+    o += c
+    val = np.frombuffer(_decompress(payload[o : o + d]), np.int16)
+    cubes = dc.size
+    if wire:
+        plane = wire_plane.reshape(cube // 2, cubes)
+    else:
+        plane = np.ascontiguousarray(
+            wire_plane.reshape(cube // 2, cubes).T).reshape(-1)
+    i2 = np.cumsum(didx.astype(np.int64))
+    cpos = (i2 >> 1) % cubes
+    jj = (i2 >> 1) // cubes
+    idx = cpos * cube + jj * 2 + (i2 & 1)
+    if split_dc:
+        if not wire:
+            raise ValueError("split_dc needs the wire layout")
+        return plane, dc.astype(np.int32), idx, val.astype(np.int32)
+    idx_all = np.concatenate(
+        [idx, np.arange(cubes, dtype=np.int64) * cube]
+    )
+    val_all = np.concatenate([val.astype(np.int32), dc.astype(np.int32)])
+    return plane, idx_all, val_all
+
+
+class TurboEncoder:
+    """Push frames, get turbo container bytes (one type-5 member per GOP).
+
+    Each GOP's device step runs on the pushing thread, which records one
+    event per GOP.  A pool of drain workers (cfg.deflate_workers, resolved
+    as entropy.resolve_workers) waits on the event, reads the GOP back on
+    its own CUDA stream into pinned memory, and compresses the member;
+    output order is kept by the futures deque.  A GOP whose exception
+    tables overflowed is re-encoded with 256 slots by its worker, on the
+    worker's stream.
+
+    Usage:
+        enc = TurboEncoder(width, height, cfg, device="cuda")
+        for batch in frame_batches:        # (T, H, W) uint8, T % gop == 0
+            out.write(enc.push(batch))
+        out.write(enc.finish())
+    """
+
+    def __init__(
+        self,
+        width: int,
+        height: int,
+        cfg: CodecConfig | None = None,
+        ctx: TransformContext | None = None,
+        device=None,
+        slots: int = exceptions.DEFAULT_SLOTS,
+        max_inflight: int = 6,
+    ) -> None:
+        self.cfg = cfg or CodecConfig()
+        self.cfg.validate_geometry(width, height)
+        self.width = width
+        self.height = height
+        self.ctx = ctx or TransformContext(self.cfg, device)
+        self.device = self.ctx.device
+        self.slots = slots
+        self.frames_encoded = 0
+        self.max_inflight = max_inflight
+        self._drainer = ThreadPoolExecutor(
+            max_workers=entropy.resolve_workers(self.cfg.deflate_workers)
+        )
+        self._out: collections.deque = collections.deque()
+        self._warned_fallback = False
+        self._local = threading.local()  # each worker's copy stream
+
+    def _warn_fallback(self) -> None:
+        self._warned_fallback = _warn_fallback_once(self._warned_fallback)
+
+    def _readback(self, gop: TurboGOP, frames_dev: torch.Tensor,
+                  done) -> list[np.ndarray]:
+        """Worker: (plane, dc, lidx, vals, counts) on the host, after the
+        overflow retry if one is needed.  Holds the GOP's device tensors
+        until their copies are done."""
+        if done is None:
+            if bool(gop.overflow):
+                gop = encode_step_turbo(frames_dev, self.ctx, _RETRY_SLOTS,
+                                        wire=True)
+            return [t.numpy() for t in gop[:5]]
+        stream = getattr(self._local, "stream", None)
+        if stream is None:
+            stream = self._local.stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(stream):
+            stream.wait_event(done)
+            if bool(gop.overflow):  # synchronizes this stream
+                gop = encode_step_turbo(frames_dev, self.ctx, _RETRY_SLOTS,
+                                        wire=True)
+            host = []
+            for t in gop[:5]:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                host.append(h)
+            stream.synchronize()
+        return [h.numpy() for h in host]
+
+    def _drain_gop(self, gop: TurboGOP, frames_dev: torch.Tensor, done,
+                   t: int, raw: np.ndarray) -> bytes:
+        plane, dc, lidx, vals, counts = self._readback(gop, frames_dev, done)
+        idx, val = _expand_pair(lidx, vals, counts, self.cfg.cube_size)
+        payload = _member_payload(plane, dc, idx, val, self.cfg, wire=True)
+        return _pick_member(raw, payload, idx.size, t, MEMBER_TURBO,
+                            self.cfg, self.ctx, self._warn_fallback)
+
+    def push(self, frames: np.ndarray) -> bytes:
+        """Encode a (T, H, W) uint8 batch; T must be a GOP multiple.
+        Returns the members that are complete (may be empty)."""
+        t = frames.shape[0]
+        gop = self.cfg.gop_size
+        if t % gop:
+            raise ValueError(
+                f"batch of {t} frames is not a multiple of GOP {gop}"
+            )
+        if frames.shape[1:] != (self.height, self.width):
+            raise ValueError("frame geometry mismatch")
+        for i in range(0, t, gop):
+            raw = frames[i : i + gop]
+            frames_dev = to_device(raw, self.device)
+            step = encode_step_turbo(frames_dev, self.ctx, self.slots,
+                                     wire=True)
+            done = None
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+            self._out.append(self._drainer.submit(
+                self._drain_gop, step, frames_dev, done, gop, raw))
+            if len(self._out) > self.max_inflight:
+                self._out[0].result()
+        self.frames_encoded += t
+        out = []
+        while self._out and self._out[0].done():
+            out.append(self._out.popleft().result())
+        return b"".join(out)
+
+    def drain(self) -> bytes:
+        """Block for every in-flight member and return its bytes."""
+        out = []
+        while self._out:
+            out.append(self._out.popleft().result())
+        return b"".join(out)
+
+    def finish(self) -> bytes:
+        out = self.drain()
+        self._drainer.shutdown(wait=True)
+        return out
+
+
+def encode_turbo_video(
+    frames: np.ndarray,
+    cfg: CodecConfig | None = None,
+    ctx: TransformContext | None = None,
+    device=None,
+) -> bytes:
+    """One-call turbo encode of an in-memory (T, H, W) uint8 video on
+    ``device`` (or ``ctx.device``); frames past the last whole GOP are
+    dropped."""
+    cfg = cfg or CodecConfig()
+    t = frames.shape[0] - frames.shape[0] % cfg.gop_size
+    enc = TurboEncoder(frames.shape[2], frames.shape[1], cfg, ctx, device)
+    return enc.push(frames[:t]) + enc.finish()
+
+
+def is_turbo_container(members: Iterable[tuple[int, bytes, int]]) -> bool:
+    """Turbo containers may interleave reference-profile fallback members
+    (MEMBER_TEMPORAL).  A container where every GOP fell back carries no
+    type-5 member at all and is a plain temporal container."""
+    types = {m[2] for m in members}
+    return MEMBER_TURBO in types and types <= {
+        MEMBER_TURBO, MEMBER_TEMPORAL, MEMBER_INDEX
+    }
+
+
+def _pool_size(n_members: int, inflate_workers: int | None) -> int:
+    return inflate_workers or max(1, min(n_members, os.cpu_count() or 2))
+
+
+def decode_turbo_container(
+    data: bytes,
+    width: int,
+    height: int,
+    cfg: CodecConfig | None = None,
+    ctx: TransformContext | None = None,
+    device=None,
+    inflate_workers: int | None = None,
+) -> np.ndarray:
+    """Turbo container -> (T, H, W) uint8 on ``device`` (or ctx.device);
+    pixels identical to the reference profile's decode of the same source.
+
+    The host stage is pure decompression, GOP-parallel on a pool; device
+    steps overlap with it through a window of in-flight GOPs."""
+    cfg = cfg or CodecConfig()
+    ctx = ctx or TransformContext(cfg, device)
+    members = [m for m in split_members(data)
+               if m[2] in (MEMBER_TURBO, MEMBER_TEMPORAL)]
+    if not members:
+        raise ValueError(f"not a turbo container (no type-{MEMBER_TURBO} members)")
+    with ThreadPoolExecutor(_pool_size(len(members), inflate_workers)) as pool:
+        return _decode_members(members, pool, width, height, cfg, ctx)
+
+
+def decode_turbo_range(
+    data: bytes,
+    width: int,
+    height: int,
+    start: int,
+    stop: int,
+    cfg: CodecConfig | None = None,
+    ctx: TransformContext | None = None,
+    device=None,
+    inflate_workers: int | None = None,
+) -> np.ndarray:
+    """Random-access decode of frames [start, stop) from a turbo container.
+
+    Members are self-delimiting and independent (one GOP each), so only
+    the covering members are decompressed and decoded.  Pixels are
+    identical to the same slice of decode_turbo_container's output."""
+    cfg = cfg or CodecConfig()
+    ctx = ctx or TransformContext(cfg, device)
+    if not (0 <= start < stop):
+        raise ValueError(f"bad frame range [{start}, {stop})")
+    covering = []
+    a0 = first_a0 = 0
+    saw_member = False
+    for m in split_members(data):
+        if m[2] not in (MEMBER_TURBO, MEMBER_TEMPORAL):
+            continue
+        saw_member = True
+        if a0 + m[0] > start and a0 < stop:
+            if not covering:
+                first_a0 = a0
+            covering.append(m)
+        a0 += m[0]
+        if a0 >= stop:
+            break
+    if not saw_member:
+        # Wrong container type, not truncation.
+        raise ValueError(f"not a turbo container (no type-{MEMBER_TURBO} members)")
+    if a0 < stop:
+        raise EOFError(
+            f"container holds {a0} frames, range [{start}, {stop}) "
+            "reaches past the end"
+        )
+    with ThreadPoolExecutor(_pool_size(len(covering), inflate_workers)) as pool:
+        span = _decode_members(covering, pool, width, height, cfg, ctx)
+    return span[start - first_a0 : stop - first_a0]
+
+
+def _decode_members(members, pool, width, height, cfg, ctx) -> np.ndarray:
+    """Decompress members on ``pool`` with a bounded lookahead, dispatch
+    the device steps in order, assemble the frames.  Reference-typed
+    fallback members decode through decoder.decode_video on the pool."""
+    out = np.empty((sum(m[0] for m in members), height, width), np.uint8)
+    pending: collections.deque = collections.deque()
+
+    def drain_one() -> None:
+        a0, t, host, done = pending.popleft()
+        if done is not None:
+            done.synchronize()
+        out[a0 : a0 + t] = host.numpy()
+
+    cube = cfg.cube_size
+    lookahead = max(4, 2 * pool._max_workers)
+
+    def submit(m):
+        t_m, payload, mtype = m
+        if mtype in _REF_TYPES:
+            return pool.submit(decode_video, payload, width, height, t_m,
+                               cfg, ctx)
+        return pool.submit(_parse_payload, payload, cube, True, True)
+
+    inflight = collections.deque(submit(m) for m in members[:lookahead])
+    nxt = len(inflight)
+    a0 = 0
+    for t, _, mtype in members:
+        planar = inflight.popleft().result()
+        if nxt < len(members):
+            inflight.append(submit(members[nxt]))
+            nxt += 1
+        if mtype in _REF_TYPES:
+            out[a0 : a0 + t] = planar  # already decoded frames
+        else:
+            pending.append((a0, t, *_to_host_async(
+                _dispatch_planar4(planar, ctx, height, width))))
+            if len(pending) >= _WINDOW:
+                drain_one()
+        a0 += t
+    while pending:
+        drain_one()
+    return out

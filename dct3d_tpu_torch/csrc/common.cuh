@@ -4,9 +4,11 @@
 // device pointers and the launching stream (cudaStream_t passed as void*),
 // launches on that stream, never synchronises, allocates nothing, and
 // returns cudaGetLastError() so the ctypes wrapper can raise on a refused
-// launch.  Built by dct3d_tpu_torch/kernels.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o _build/libkernels.so csrc/*.cu
+// launch.  Built by dct3d_tpu_torch/kernels.py: each source with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//        -Xcompiler -fPIC -c -o <source>.o csrc/<source>.cu
+// (all at once), then the objects linked with -shared into
+// _build/libkernels.so.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,14 +1,15 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources are ``csrc/*.cu``; ``build()`` compiles them with nvcc for
-Hopper (``sm_90a``) into one shared library with a plain C interface,
+Hopper (``sm_90a``), one nvcc process per source, all started together,
+and links the objects into one shared library with a plain C interface,
 ``_build/libkernels.so``, the first time a kernel is launched and again
 whenever a source is newer than the library.  ``load()`` binds it with
 ctypes: every pointer and the stream travel as ``c_void_p``.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without nvcc or a card.  Each op wrapper
-(ops/relayout.py, ops/group_pack.py, ops/splice.py) takes its plain PyTorch
+(ops/relayout.py, ops/group_pack.py, ops/splice.py, ops/exc_pack.py) takes its plain PyTorch
 version only for CPU tensors; for a CUDA tensor it launches through here or
 raises, and never falls back.
 
@@ -23,6 +24,7 @@ import collections
 import ctypes
 import glob
 import os
+import shutil
 import subprocess
 import tempfile
 import threading
@@ -36,7 +38,7 @@ _LIB = os.path.join(_BUILD_DIR, "libkernels.so")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 #: kernel name -> launches in this process (see module docstring)
@@ -53,6 +55,9 @@ _SIGNATURES = {
     "dct3d_cubes_to_frames": [_P, _P, _I, _I, _I, _P],
     "dct3d_group_pack_values": [_P, _P, _P, _I, _I, _P],
     "dct3d_splice": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "dct3d_compact_groups": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "dct3d_plane_to_wire": [_P, _P, _I, _I, _P],
+    "dct3d_wire_to_plane": [_P, _P, _I, _I, _P],
 }
 
 
@@ -74,16 +79,27 @@ def build() -> str:
         os.path.getmtime(p) for p in inputs
     ):
         return _LIB
-    # Build into a temp file then rename, so concurrent builds race safely.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
+    # Compile every source at once, link, then rename into place, so
+    # concurrent builds race safely.
+    tmpdir = tempfile.mkdtemp(dir=_BUILD_DIR)
+    tmp = os.path.join(tmpdir, "libkernels.so")
     try:
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                       check=True, capture_output=True, text=True)
-    except subprocess.CalledProcessError as e:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed:\n{e.stdout}\n{e.stderr}") from e
-    os.replace(tmp, _LIB)
+        objs = [os.path.join(tmpdir, os.path.basename(s) + ".o") for s in sources]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for s, o in zip(sources, objs)]
+        logs = [(p.communicate()[0], p.returncode) for p in procs]
+        bad = [log for log, rc in logs if rc]
+        if bad:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(bad))
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{res.stdout}\n{res.stderr}")
+        os.replace(tmp, _LIB)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
     return _LIB
 
 

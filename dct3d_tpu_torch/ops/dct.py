@@ -93,6 +93,25 @@ def encode_matrix(cfg: CodecConfig, dtype=np.float32) -> np.ndarray:
     return np.ascontiguousarray(enc.T).astype(dtype)
 
 
+def encode_matrix_pair(cfg: CodecConfig, dtype=np.float32) -> np.ndarray:
+    """encode_matrix with its output columns PAIR-PERMUTED: even zigzag
+    indices first (0, 2, ..., cube-2), then odd (1, 3, ...).
+
+    round(x_cubes @ Ep) yields quantized coefficients whose even/odd zigzag
+    halves are contiguous column slices, so the turbo profile's nibble pack
+    is elementwise on the two halves.  Column values are identical to
+    encode_matrix's (same f64 build, same cast), so each quantized integer
+    equals the reference profile's; the permutation keeps DC at column 0
+    (the exact-DC epilogue of codec/transform._quantize applies unchanged).
+    """
+    enc, _ = _matrices_f64(
+        cfg.block_w, cfg.block_h, cfg.block_d, cfg.quant_strength
+    )
+    cube = enc.shape[0]
+    perm = np.concatenate([np.arange(0, cube, 2), np.arange(1, cube, 2)])
+    return np.ascontiguousarray(enc.T[:, perm]).astype(dtype)
+
+
 def decode_matrix(cfg: CodecConfig, dtype=np.float32) -> np.ndarray:
     """(cube, cube) matrix D^T such that v_zig @ D^T reconstructs pixel cubes
     (before the [0, 255] clamp) from quantized zigzag-order integers."""

@@ -1,5 +1,6 @@
 """Wrappers of the relayout kernels K1 (frames -> cubes) and K4 (cubes ->
-frames), csrc/relayout.cu.
+frames), csrc/relayout.cu, and of the turbo wire's byte transpose, K7
+(plane -> wire) and K8 (wire -> plane), csrc/wire.cu.
 
 They replace ``dct3d_tpu.ops.relayout.frames_to_cubes_perm`` and
 ``cubes_perm_to_frames`` at their public boundary: the TPU kernels work in a
@@ -8,8 +9,13 @@ give the natural cube order of codec/framing.py.  K1 also emits each
 cube's exact integer pixel sum (the exact-DC quantizer's input) and the f32
 cast; K4 also does the decoder's clamp and truncating uint8 cast.
 
-CPU tensors take the plain versions (codec/framing.py); CUDA tensors launch
-the kernel.  Both cover 8x8x8 cubes only.
+K7 and K8 replace ``dct3d_tpu.ops.relayout.plane_to_wire`` and
+``wire_words`` (``wire_to_plane``): the TPU kernels transpose int32 words
+and peel or pack bytes around them, because Mosaic cannot transpose bytes;
+these transpose the bytes directly.
+
+CPU tensors take the plain versions (codec/framing.py, a transpose); CUDA
+tensors launch the kernel.  K1 and K4 cover 8x8x8 cubes only.
 """
 
 from __future__ import annotations
@@ -82,3 +88,44 @@ def cubes_to_frames(pixels: torch.Tensor, height: int,
     kernels.launch("cubes_to_frames", pixels.device, pixels, frames, gops,
                    height, width)
     return frames
+
+
+def plane_to_wire_plain(plane: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K7 (same contract as plane_to_wire)."""
+    return plane.t().contiguous()
+
+
+def wire_to_plane_plain(wire: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K8 (same contract as wire_to_plane)."""
+    return wire.t().contiguous()
+
+
+def _transpose_u8(name: str, x: torch.Tensor, cubes: int, hc: int) -> torch.Tensor:
+    kernels.check_cuda(name, x)
+    out = torch.empty((x.shape[1], x.shape[0]), dtype=torch.uint8, device=x.device)
+    kernels.launch(name, x.device, x, out, cubes, hc)
+    return out
+
+
+def _check_u8_2d(name: str, x: torch.Tensor) -> None:
+    if x.dtype != torch.uint8 or x.dim() != 2 or not x.numel():
+        raise ValueError(f"{name} takes a nonempty 2-D uint8 tensor")
+
+
+def plane_to_wire(plane: torch.Tensor) -> torch.Tensor:
+    """K7: (cubes, hc) uint8 transport nibble plane -> (hc, cubes) uint8
+    wire layout (coefficient-pair-major: wire[p, c] = plane[c, p])."""
+    _check_u8_2d("plane_to_wire", plane)
+    if plane.device.type == "cpu":
+        return plane_to_wire_plain(plane)
+    return _transpose_u8("plane_to_wire", plane, *plane.shape)
+
+
+def wire_to_plane(wire: torch.Tensor) -> torch.Tensor:
+    """K8: (hc, cubes) uint8 wire layout -> (cubes, hc) uint8 transport
+    nibble plane, the inverse of plane_to_wire."""
+    _check_u8_2d("wire_to_plane", wire)
+    if wire.device.type == "cpu":
+        return wire_to_plane_plain(wire)
+    hc, cubes = wire.shape
+    return _transpose_u8("wire_to_plane", wire, cubes, hc)

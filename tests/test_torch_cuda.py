@@ -12,8 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from dct3d_tpu_torch import decode_video, encode_video, kernels
-from dct3d_tpu_torch.ops import bitpack, group_pack, relayout, splice
+from dct3d_tpu_torch import (
+    decode_turbo_container, decode_video, encode_turbo_video, encode_video,
+    kernels,
+)
+from dct3d_tpu_torch.ops import bitpack, exc_pack, group_pack, relayout, splice
 
 torch.set_num_threads(2)
 
@@ -79,3 +82,47 @@ def test_codec_on_card_equals_cpu(dev):
     assert data == encode_video(clip, device="cpu")
     d = np.abs(out.astype(np.int16) - decode_video(data, 72, 48, 24, device="cpu"))
     assert d.max() <= 1 and (d > 0).mean() < 0.01
+
+
+@pytest.mark.parametrize("groups,slots,dc_stride", [
+    (37, 16, 512), (37, 256, 512), (300, 16, 0), (300, 4, 96), (5, 1, 64),
+])
+def test_compact_groups_kernel_equals_plain(dev, groups, slots, dc_stride):
+    """K6, tables compared whole (both zero the padding slots), on content
+    dense enough that many groups overflow 16 slots."""
+    rng = np.random.default_rng(groups + slots)
+    vals = np.where(rng.random((groups, 256)) < 0.1,
+                    rng.integers(-5771, 5772, (groups, 256)),
+                    rng.integers(-8, 8, (groups, 256))).astype(np.int32)
+    v2 = torch.from_numpy(vals)
+    got = exc_pack.compact_groups(v2.to(dev), slots, dc_stride)
+    want = exc_pack.compact_groups_plain(v2, slots, dc_stride)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("cubes", [1, 37, 128, 300, 1023])
+def test_wire_kernels_equal_plain(dev, cubes):
+    """K7 and K8, including cube counts that leave edge tiles and rows that
+    are not a multiple of 4 bytes."""
+    plane = torch.from_numpy(
+        np.random.default_rng(cubes).integers(0, 256, (cubes, 256), dtype=np.uint8))
+    wire = relayout.plane_to_wire(plane.to(dev))
+    assert torch.equal(wire.cpu(), relayout.plane_to_wire_plain(plane))
+    back = relayout.wire_to_plane(wire)
+    assert torch.equal(back.cpu(), plane)
+
+
+def test_turbo_on_card_equals_cpu(dev):
+    """Turbo container bytes equal the CPU path's; pixels identical to the
+    card's reference-profile decode; K6, K7 and K8 launched."""
+    clip = synthetic_video(24, 48, 72, seed=8)
+    kernels.LAUNCHES.clear()
+    data = encode_turbo_video(clip, device=dev)
+    out = decode_turbo_container(data, 72, 48, device=dev)
+    assert all(kernels.LAUNCHES[k] > 0 for k in (
+        "frames_to_cubes", "compact_groups", "plane_to_wire", "wire_to_plane",
+        "cubes_to_frames"))
+    assert data == encode_turbo_video(clip, device="cpu")
+    ref = decode_video(encode_video(clip, device=dev), 72, 48, 24, device=dev)
+    assert np.array_equal(out, ref)

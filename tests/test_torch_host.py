@@ -18,13 +18,18 @@ import torch
 from conftest import synthetic_video
 from dct3d_tpu import config as j_config
 from dct3d_tpu import metrics as j_metrics
+from dct3d_tpu.codec import entropy as j_entropy
 from dct3d_tpu.codec import transform as j_transform
+from dct3d_tpu.codec import turbo as j_turbo
 from dct3d_tpu.ops import dct as j_dct
+from dct3d_tpu.ops import exceptions as j_exceptions
 from dct3d_tpu.ops import quant as j_quant
 from dct3d_tpu.ops import zigzag as j_zigzag
+from dct3d_tpu.parallel import multihost as j_multihost
 from dct3d_tpu_torch import config, metrics
-from dct3d_tpu_torch.codec import encoder, transform
-from dct3d_tpu_torch.ops import dct, quant, zigzag
+from dct3d_tpu_torch.codec import encoder, entropy, transform, turbo
+from dct3d_tpu_torch.ops import dct, exceptions, quant, zigzag
+from dct3d_tpu_torch.parallel import multihost
 
 torch.set_num_threads(2)
 
@@ -60,7 +65,7 @@ def test_quant_divisors_equal(strength):
 def test_dct_matrices_bit_equal(strength):
     cfg = config.CodecConfig(quant_strength=strength)
     jcfg = j_config.CodecConfig(quant_strength=strength)
-    for fn in ("encode_matrix", "decode_matrix"):
+    for fn in ("encode_matrix", "encode_matrix_pair", "decode_matrix"):
         a, b = getattr(dct, fn)(cfg), getattr(j_dct, fn)(jcfg)
         assert a.dtype == b.dtype == np.float32
         assert a.tobytes() == b.tobytes()
@@ -92,7 +97,8 @@ def test_context_from_jax_arrays_equals_own_build():
     """A context built from a JAX TransformContext's arrays is bit-identical
     to the port's own float64 host build, and encodes identical streams."""
     jctx = j_transform.TransformContext(j_config.CodecConfig())
-    arrays = {k: np.asarray(getattr(jctx, k)) for k in ("enc_t", "dec_me", "dec_mo")}
+    arrays = {k: np.asarray(getattr(jctx, k))
+              for k in ("enc_t", "enc_t_pair", "dec_me", "dec_mo")}
     from_jax = transform.TransformContext.from_numpy(arrays, None, "cpu")
     own = transform.TransformContext(None, "cpu")
     for k in arrays:
@@ -101,6 +107,73 @@ def test_context_from_jax_arrays_equals_own_build():
         assert a.numpy().tobytes() == b.numpy().tobytes()
     clip = synthetic_video(8, 32, 32)
     assert encoder.encode_video(clip, ctx=from_jax) == encoder.encode_video(clip, ctx=own)
+
+
+def _exception_tables(seed: int, slots: int = 16):
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, slots + 3, 50).astype(np.int32)
+    lidx = np.sort(rng.integers(0, 256, (50, slots)), axis=1).astype(np.uint8)
+    vals = rng.integers(-5771, 5772, (50, slots)).astype(np.int16)
+    return lidx, vals, counts
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_expand_exceptions_equal(seed):
+    tables = _exception_tables(seed)
+    for a, b in zip(exceptions.expand_exceptions_np(*tables),
+                    j_exceptions.expand_exceptions_np(*tables)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(turbo._expand_pair(*tables, 512), j_turbo._expand_pair(*tables, 512)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_member_framing_equal():
+    for name in ("MEMBER_MAGIC", "MEMBER_TEMPORAL", "MEMBER_RED", "MEMBER_GREEN",
+                 "MEMBER_BLUE", "MEMBER_INDEX", "_MAX_MEMBER_FRAMES"):
+        assert getattr(multihost, name) == getattr(j_multihost, name), name
+    data = b"".join([multihost._member(b"abc", 8), multihost._member(b"", 16, 5),
+                     multihost._member(bytes(range(200)), 8, 4)])
+    assert data == b"".join([j_multihost._member(b"abc", 8), j_multihost._member(b"", 16, 5),
+                             j_multihost._member(bytes(range(200)), 8, 4)])
+    assert multihost.split_members(data) == j_multihost.split_members(data)
+    with pytest.raises(ValueError, match="D3MH"):
+        multihost.split_members(b"XXXX" + data)
+    with pytest.raises(ValueError, match="2\\^24"):
+        multihost._member(b"", 1 << 24)
+
+
+def test_turbo_constants_and_workers_equal():
+    assert turbo.MEMBER_TURBO == j_turbo.MEMBER_TURBO
+    assert turbo.FALLBACK_EXC_FRAC == j_turbo.FALLBACK_EXC_FRAC
+    assert turbo._ZSTD_MAGIC == j_turbo._ZSTD_MAGIC
+    assert turbo._FALLBACK_TYPE.items() <= j_turbo._FALLBACK_TYPE.items()
+    assert turbo._REF_TYPES <= j_turbo._REF_TYPES
+    assert exceptions.DEFAULT_SLOTS == j_exceptions.DEFAULT_SLOTS
+    for w in (-1, 0, 1, 5):
+        assert entropy.resolve_workers(w) == j_entropy.resolve_workers(w)
+
+
+@pytest.mark.parametrize("wire", [True, False])
+def test_member_payload_roundtrip_equal(wire):
+    """_member_payload and _parse_payload equal the originals on one GOP's
+    worth of random tables, in both layouts."""
+    rng = np.random.default_rng(5)
+    cubes = 40
+    plane = rng.integers(0, 256, (cubes, 256), dtype=np.uint8)
+    plane_in = np.ascontiguousarray(plane.T) if wire else plane.reshape(-1)
+    dc = rng.integers(-5771, 5772, cubes).astype(np.int16)
+    idx = np.sort(rng.choice(cubes * 512, 300, replace=False)).astype(np.int64)
+    val = rng.integers(-5771, 5772, 300).astype(np.int32)
+    cfg = config.CodecConfig(turbo_codec="zlib")
+    payload = turbo._member_payload(plane_in, dc, idx, val, cfg, wire=wire)
+    assert payload == j_turbo._member_payload(
+        plane_in, dc, idx, val, j_config.CodecConfig(turbo_codec="zlib"), wire=wire)
+    for split in ([False, True] if wire else [False]):
+        for a, b in zip(turbo._parse_payload(payload, 512, wire, split),
+                        j_turbo._parse_payload(payload, 512, wire, split)):
+            np.testing.assert_array_equal(a, b)
 
 
 def _port_modules():
@@ -127,7 +200,10 @@ def test_port_imports_no_jax_subprocess():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert len(mods) >= 16
+    assert {"dct3d_tpu_torch.parallel", "dct3d_tpu_torch.parallel.multihost",
+            "dct3d_tpu_torch.codec.turbo", "dct3d_tpu_torch.ops.exc_pack",
+            "dct3d_tpu_torch.ops.exceptions"} <= set(mods)
+    assert len(mods) >= 21
 
 
 @pytest.mark.parametrize("path", sorted(_port_modules()) + [os.path.join(ROOT, "chip_smoke.py")],
