@@ -12,9 +12,15 @@ kernels.py):
   K2 group bit pack          ops/group_pack.py  csrc/group_pack.cu reference
   K3 group splice            ops/splice.py      csrc/splice.cu     reference
   K4 cubes -> frames         ops/relayout.py    csrc/relayout.cu   both
+  K5 group bit pack, codes   ops/group_pack.py  csrc/group_pack.cu reference
   K6 exception compaction    ops/exc_pack.py    csrc/exc_pack.cu   turbo
   K7 plane -> wire           ops/relayout.py    csrc/wire.cu       turbo
   K8 wire -> plane           ops/relayout.py    csrc/wire.cu       turbo
+
+K1 and K4 cover 8x8x8 cubes; the alternate blocks (4x4x4, 8x8x4) take
+framing's transposes, and batches that are not whole 256-value groups take
+K5 (``ops/bitpack.pack_bits``).  ``io/pad.py`` edge-replicates frames up to
+block multiples and crops them back.
 
 Every public entry point takes an explicit ``device`` (or a
 ``TransformContext`` that holds one): on "cuda" the kernels run, on "cpu"
@@ -29,6 +35,7 @@ from .codec.turbo import (
     encode_turbo_video,
 )
 from .config import DEFAULT_CONFIG, CodecConfig
+from .io.pad import crop_frames, pad_frames, padded_geometry
 from .metrics import bits_per_pixel, psnr
 
 __all__ = [
@@ -38,11 +45,14 @@ __all__ = [
     "TransformContext",
     "TurboEncoder",
     "bits_per_pixel",
+    "crop_frames",
     "decode_frame_range",
     "decode_turbo_container",
     "decode_turbo_range",
     "decode_video",
     "encode_turbo_video",
     "encode_video",
+    "pad_frames",
+    "padded_geometry",
     "psnr",
 ]

@@ -1,17 +1,20 @@
 """Device pipeline: frames <-> quantized zigzag coefficients <-> bits.
 
 The port's counterpart of ``dct3d_tpu.codec.transform`` (reference profile,
-8x8x8 cubes, float32):
+float32, any cube geometry):
 
   encode step:  (T, H, W) uint8
-                -> K1: f32 cubes + exact int32 cube sums (ops/relayout.py)
-                -> (num_cubes, 512) @ (512, 512) f32 matmul
+                -> f32 cubes + exact int32 cube sums (K1 for 8x8x8 cubes,
+                   ops/relayout.py; codec/framing.py otherwise)
+                -> (num_cubes, cube) @ (cube, cube) f32 matmul
                    [3D DCT + quantization + zigzag folded into the matrix]
                 -> round half away from zero, exact DC (ops/quant.py)
-                -> Exp-Golomb bit pack, K2 + K3 (ops/bitpack.py)
+                -> Exp-Golomb bit pack (ops/bitpack.py): K2 + K3 for whole
+                   256-value groups, K5 + K3 otherwise
                 -> next GOP's carry, on the device
   decode step:  nibble plane + exceptions + DC -> two f32 matmuls
-                -> K4: clamp, truncating cast, cubes -> frames
+                -> clamp, truncating cast, cubes -> frames (K4 for 8x8x8
+                   cubes, framing otherwise)
 
 The large matmuls stay ``torch.matmul``, as the JAX package leaves them to
 XLA; full float32 (no TF32) keeps quantized-integer parity with the
@@ -26,7 +29,8 @@ import numpy as np
 import torch
 
 from ..config import CodecConfig
-from ..ops import bitpack, dct, quant, relayout
+from ..ops import bitpack, dct, expgolomb, group_pack, quant, relayout
+from . import framing
 
 
 def _full_f32() -> None:
@@ -48,11 +52,6 @@ def _assert_full_f32() -> None:
 def _check_supported(cfg: CodecConfig) -> None:
     """Raise NotImplementedError for configurations the port lacks yet
     (each names its ROADMAP Queue 1 item)."""
-    if (cfg.block_w, cfg.block_h, cfg.block_d) != (8, 8, 8):
-        raise NotImplementedError(
-            "only 8x8x8 cubes: other blocks need pack_bits and the K5 kernel "
-            "(ROADMAP Queue 1: pack_bits / 4x4x4 blocks)"
-        )
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             "only compute_dtype='float32' (ROADMAP Queue 1: bf16 profile)"
@@ -123,28 +122,52 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
 
 
+def _cubes_and_sums(frames: torch.Tensor,
+                    cfg: CodecConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """(T, H, W) uint8 -> ((num_cubes, cube) f32 pixels, (num_cubes,) exact
+    int32 pixel sums): K1 where it covers the geometry, else framing's
+    transpose (the route is chosen by geometry, as in the JAX package)."""
+    t, h, w = frames.shape
+    if relayout.supports(cfg, h, w):
+        return relayout.frames_to_cubes(frames)
+    cubes = framing.frames_to_cubes(frames, cfg)
+    return cubes.float(), cubes.sum(1, dtype=torch.int32)
+
+
+def _finish_frames(pixels: torch.Tensor, cfg: CodecConfig, height: int,
+                   width: int) -> torch.Tensor:
+    """(num_cubes, cube) f32 pixels -> clamp to [0, 255] (3dDCT.cl:256-262),
+    truncating uint8 cast (decoder.c:30), (T, H, W) frames: K4 where it
+    covers the geometry, else framing's transpose."""
+    if relayout.supports(cfg, height, width):
+        return relayout.cubes_to_frames(pixels, height, width)
+    return framing.cubes_to_frames(pixels.clamp(0.0, 255.0).to(torch.uint8),
+                                   cfg, height, width)
+
+
 def _quantize(cubes: torch.Tensor, sums: torch.Tensor, enc_t: torch.Tensor,
               cfg: CodecConfig) -> torch.Tensor:
-    """(num_cubes, 512) f32 pixel cubes -> int32 quantized zigzag
+    """(num_cubes, cube) f32 pixel cubes -> int32 quantized zigzag
     coefficients.  DC (column 0, divisor 1) is the one coefficient where a
     1-ulp f32 wobble can cross the rounding boundary against the float64
     oracle, so it is replaced by the exact fixed-point quantizer of the
-    integer cube sums (ops/quant.exact_dc_quant; sums < 2^20 for 512 uint8
-    pixels)."""
+    integer cube sums (ops/quant.exact_dc_quant), for cubes of at most 4096
+    pixels (sums < 2^20), the JAX package's gate."""
     _assert_full_f32()
     scaled = cubes @ enc_t
     # q = sign(x)*floor(|x| + bias): round half away from zero at bias 0.5
     # (C roundf, encoder.c:53), a deadzone quantizer below it.
     q = torch.trunc(scaled + torch.copysign(scaled.new_full((), cfg.quant_bias),
                                             scaled)).to(torch.int32)
-    q[:, 0] = quant.exact_dc_quant(sums, cfg.cube_size, cfg.quant_bias)
+    if cfg.cube_size <= 4096:
+        q[:, 0] = quant.exact_dc_quant(sums, cfg.cube_size, cfg.quant_bias)
     return q
 
 
 def quantize_step(frames: torch.Tensor, ctx: TransformContext) -> torch.Tensor:
-    """(T, H, W) uint8 frames -> (num_cubes, 512) int32 quantized zigzag
+    """(T, H, W) uint8 frames -> (num_cubes, cube) int32 quantized zigzag
     coefficients, bit-identical to the float64 oracle's at test sizes."""
-    cubes, sums = relayout.frames_to_cubes(frames)
+    cubes, sums = _cubes_and_sums(frames, ctx.cfg)
     return _quantize(cubes, sums, ctx.enc_t, ctx.cfg)
 
 
@@ -167,12 +190,22 @@ def encode_step(frames: torch.Tensor, ctx: TransformContext,
     bits), continuing the bitstream across GOPs like the C encoder's buffer
     carry (encoder.c:266-271).  The returned carry is computed on the
     device, so consecutive GOPs chain without a host round trip.
+
+    Batches of whole 256-value groups take bitpack.pack_values (K2 + K3).
+    Others (4x4x4 cubes at a cube count per GOP that is not a multiple of
+    4) take bitpack.pack_bits (K5 + K3), with the carry as a leading
+    pseudo-codeword, as the JAX package does.
     """
-    q = quantize_step(frames, ctx)
-    packed, total_bits, tail_byte, overflow = bitpack.pack_values(
-        q.reshape(-1), carry_code, carry_bits,
-        max_width=bitpack.max_codeword_bits(ctx.cfg.cube_size),
-    )
+    q = quantize_step(frames, ctx).reshape(-1)
+    max_width = bitpack.max_codeword_bits(ctx.cfg.cube_size)
+    if q.numel() % group_pack.GROUP == 0:
+        packed, total_bits, tail_byte, overflow = bitpack.pack_values(
+            q, carry_code, carry_bits, max_width=max_width)
+    else:
+        code, width = expgolomb.codewords(q)
+        packed, total_bits, tail_byte, overflow = bitpack.pack_bits(
+            torch.cat([carry_code.reshape(1), code]),
+            torch.cat([carry_bits.reshape(1), width]), max_width=max_width)
     rem = total_bits % 8
     new_code = torch.where(rem > 0, tail_byte >> (8 - rem), 0)
     return EncodedGOP(packed, total_bits, new_code, rem, overflow)
@@ -193,7 +226,7 @@ def planar4_to_frames(plane: torch.Tensor, exc_idx: torch.Tensor,
                       width: int) -> torch.Tensor:
     """Decode step from the packed-nibble plane -> (T, H, W) uint8 frames.
 
-    plane: (cubes * 256,) uint8, two coefficients per byte (low nibble =
+    plane: (cubes * cube / 2,) uint8, two coefficients per byte (low nibble =
     even index), sign-extended from 4 bits.  exc_idx (int64) / exc_val
     (int32): flat coefficient index and true value of every non-DC value
     outside [-8, 7].  dc: (cubes,) int32 dense DC, spliced as column 0 of
@@ -215,4 +248,4 @@ def planar4_to_frames(plane: torch.Tensor, exc_idx: torch.Tensor,
     lo2[:, 0] = dc
     pixels = _dequant_matmul(lo2, hi[:half].reshape(-1, hc), ctx.dec_me,
                              ctx.dec_mo)
-    return relayout.cubes_to_frames(pixels, height, width)
+    return _finish_frames(pixels, ctx.cfg, height, width)

@@ -5,13 +5,15 @@ grayscale video.  The wire carries the codec's device transport format —
 a packed-nibble plane of quantized zigzag coefficients, a dense DC stream
 and a sparse exception list — compressed per GOP:
 
-  encode step:  K1 -> f32 matmul with the pair-permuted encode matrix
-                -> exact-DC quantize -> nibble pack -> K7 (plane -> wire)
-                -> K6 (exception tables), all on the device;
+  encode step:  K1 (8x8x8 cubes; framing otherwise) -> f32 matmul with the
+                pair-permuted encode matrix -> exact-DC quantize -> nibble
+                pack -> K7 (plane -> wire) -> K6 (exception tables), all on
+                the device;
   host drain:   tables -> sorted exception list -> four compressed streams
                 -> one D3MH member (type 5) per GOP;
   decode:       host decompression (GOP-parallel) -> K8 (wire -> plane)
-                -> the reference profile's planar4_to_frames (K4).
+                -> the reference profile's planar4_to_frames (K4 for
+                8x8x8 cubes).
 
 Pixels are identical to the reference profile's decode: the quantized
 integers are the same and so is the inverse transform.  Only the container
@@ -51,7 +53,7 @@ from ..parallel.multihost import (
 from . import entropy
 from .decoder import _dispatch_planar4, _to_host_async, decode_video
 from .encoder import encode_video
-from .transform import TransformContext, _quantize, to_device
+from .transform import TransformContext, _cubes_and_sums, _quantize, to_device
 
 try:  # optional: smaller and faster than DEFLATE on the nibble plane
     import zstandard as _zstd
@@ -153,7 +155,7 @@ def encode_step_turbo(frames: torch.Tensor, ctx: TransformContext,
     (transform.quantize_step) with the columns in pair order: the
     pair-permuted matrix has the same column values, and DC takes the same
     exact quantizer."""
-    cubes, sums = relayout.frames_to_cubes(frames)
+    cubes, sums = _cubes_and_sums(frames, ctx.cfg)
     qp = _quantize(cubes, sums, ctx.enc_t_pair, ctx.cfg)
     return _plane_and_tables(qp, slots, wire=wire)
 

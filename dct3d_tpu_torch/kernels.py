@@ -54,6 +54,7 @@ _SIGNATURES = {
     "dct3d_frames_to_cubes": [_P, _P, _P, _I, _I, _I, _P],
     "dct3d_cubes_to_frames": [_P, _P, _I, _I, _I, _P],
     "dct3d_group_pack_values": [_P, _P, _P, _I, _I, _P],
+    "dct3d_group_pack_codes": [_P, _P, _P, _P, _I, _I, _P],
     "dct3d_splice": [_P, _P, _P, _P, _I, _I, _I, _P],
     "dct3d_compact_groups": [_P, _P, _P, _P, _I, _I, _I, _P],
     "dct3d_plane_to_wire": [_P, _P, _I, _I, _P],

@@ -1,7 +1,7 @@
 """Device-side parallel bit packing of Exp-Golomb codewords.
 
-The port's counterpart of ``dct3d_tpu.ops.bitpack.pack_values``, in five
-steps per batch of whole 256-value groups:
+The port's counterpart of ``dct3d_tpu.ops.bitpack``.  ``pack_values`` packs
+a batch of whole 256-value groups in five steps:
 
   1. group geometry — each group's bit count and start bit (one cumsum over
      the groups, plain torch as it is plain XLA in the JAX package), its
@@ -11,6 +11,13 @@ steps per batch of whole 256-value groups:
   4. level 2, K3 (ops/splice.py): groups placed at their start words;
   5. the tail byte (the byte holding the last bit, the next batch's carry
      source) read from the finished buffer, on the device.
+
+``pack_bits`` packs any batch of precomputed (code, width) fields: the
+carry rides as a leading pseudo-codeword and zero-width slots pad the last
+group, so level 1 is K5 (codes and widths in, no carry step) and the rest
+is as above.  The encoders take it for batches that are not whole groups
+(4x4x4 cubes at frame sizes whose cube count per GOP is not a multiple of
+4).
 
 The JAX package caps its buffers at a bit budget to give XLA small static
 shapes, flags overflow and retries.  Here both buffers have the worst-case
@@ -45,6 +52,15 @@ def stream_words(n: int, max_width: int) -> int:
     return (7 + n * max_width + 31) // 32
 
 
+def _check_batch(n: int, max_width: int) -> None:
+    if not 1 <= max_width <= 32:
+        raise ValueError(f"max_width {max_width} not in 1..32")
+    if n * max_width >= 1 << 31:
+        # Bit offsets are int32 in the kernels (a 1080p GOP is ~0.45 Gbit
+        # worst case).
+        raise ValueError(f"batch of {n} codewords can exceed 2^31 bits")
+
+
 def geometry(v2: torch.Tensor, carry_bits: torch.Tensor):
     """Group bit geometry of (g, 256) values after a carry of carry_bits
     bits: (gstart, gend) int64, each group's first bit and end bit
@@ -62,7 +78,16 @@ def or_carry_lead(buf_groups: torch.Tensor, carry_code: torch.Tensor,
     nothing overlaps.  The shift is masked to dodge a shift by 32 when
     carry_bits == 0, which `where` discards."""
     lead = torch.where(carry_bits > 0, carry_code << ((32 - carry_bits) & 31), 0)
-    buf_groups[0, :1].bitwise_or_(group_pack.to_word_bits(lead.reshape(1)))
+    buf_groups[0, :1].bitwise_or_(expgolomb.to_word_bits(lead.reshape(1)))
+
+
+def _finish(buf_groups, gstart, gend, n: int, max_width: int):
+    """Level 2 (K3) and the tail byte: (buf, total_bits, tail_byte, False)."""
+    buf = splice.splice(buf_groups, (gstart >> 5).to(torch.int32),
+                        gend.to(torch.int32), stream_words(n, max_width))
+    total_bits = gend[-1]
+    tail_byte = buf.index_select(0, ((total_bits - 1).clamp(min=0) >> 3).reshape(1))
+    return buf, total_bits, tail_byte[0].to(torch.int64), False
 
 
 def pack_values(values: torch.Tensor, carry_code: torch.Tensor,
@@ -82,18 +107,40 @@ def pack_values(values: torch.Tensor, carry_code: torch.Tensor,
     n, group = values.numel(), group_pack.GROUP
     if not n or n % group:
         raise ValueError(f"pack_values needs whole {group}-value groups, got {n}")
-    if n * max_width >= 1 << 31:
-        # Bit offsets are int32 in the kernels (a 1080p GOP is ~0.45 Gbit
-        # worst case).
-        raise ValueError(f"batch of {n} codewords can exceed 2^31 bits")
+    _check_batch(n, max_width)
     v2 = values.reshape(-1, group)
     gstart, gend = geometry(v2, carry_bits)
     buf_groups = group_pack.group_pack_values(
         v2, (gstart & 31).to(torch.int32), worst_case_w_words(group, max_width)
     )
     or_carry_lead(buf_groups, carry_code, carry_bits)
-    buf = splice.splice(buf_groups, (gstart >> 5).to(torch.int32),
-                        gend.to(torch.int32), stream_words(n, max_width))
-    total_bits = gend[-1]
-    tail_byte = buf.index_select(0, ((total_bits - 1) >> 3).reshape(1))
-    return buf, total_bits, tail_byte[0].to(torch.int64), False
+    return _finish(buf_groups, gstart, gend, n, max_width)
+
+
+def pack_bits(code: torch.Tensor, width: torch.Tensor, max_width: int = 32):
+    """Pack codewords from bit 0 of the stream.
+
+    code: (n,) integer tensor, each field's payload right-aligned, in
+    [0, 2^32); width: (n,) field widths in [0, max_width] (max_width
+    <= 32).  Real codewords have width >= 1; zero-width slots may only lead
+    (the carry pseudo-codeword) or trail, as in the JAX function: K3 relies
+    on every group but the last spanning whole words.
+
+    Returns (buf, total_bits, tail_byte, overflow) like pack_values; for
+    n == 0, a zero buffer and zeros, as the JAX function returns.
+    """
+    n, group = width.numel(), group_pack.GROUP
+    _check_batch(n, max_width)
+    if n == 0:
+        zero = torch.zeros((), dtype=torch.int64, device=width.device)
+        buf = torch.zeros(4 * stream_words(0, max_width), dtype=torch.uint8,
+                          device=width.device)
+        return buf, zero, zero.clone(), False
+    code2, wid2 = expgolomb.grouped(code, width, group)
+    gbits = wid2.sum(1, dtype=torch.int64)
+    gstart = torch.cumsum(gbits, 0) - gbits
+    buf_groups = group_pack.group_pack_codes(
+        code2, wid2, (gstart & 31).to(torch.int32),
+        worst_case_w_words(group, max_width),
+    )
+    return _finish(buf_groups, gstart, gstart + gbits, n, max_width)

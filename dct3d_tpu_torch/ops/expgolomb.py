@@ -23,3 +23,19 @@ def codewords(values: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     code = torch.where(v > 0, 2 * v - 1, -2 * v) + 1
     nbits = torch.frexp(code.to(torch.float64)).exponent.to(torch.int64)
     return code, 2 * nbits - 1
+
+
+def to_word_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 tensor with the same 32 bits."""
+    return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+def grouped(code: torch.Tensor, width: torch.Tensor,
+            group: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
+    """(n,) codes in [0, 2^32) and widths -> contiguous (g, group) int32
+    tensors (codes as their uint32 bit patterns), zero-padded to whole
+    groups: trailing zero-width slots write no bits (K5's input)."""
+    pad = (-code.numel()) % group
+    code = torch.nn.functional.pad(code.to(torch.int64), (0, pad))
+    width = torch.nn.functional.pad(width.to(torch.int32), (0, pad))
+    return to_word_bits(code).reshape(-1, group), width.reshape(-1, group)

@@ -1,5 +1,6 @@
 """Analytic quantization function (copy of ``dct3d_tpu.ops.quant``;
-tests/test_torch_host.py pins divisors and exact DC to the original).
+tests/test_torch_host.py pins divisors and exact DC to the original; the
+copy's exact DC also checks its cube bound).
 
 The reference divides each coefficient by ``max(1, q * (i + j + k))`` where
 (i, j, k) are the intra-cube coordinates and q = 5, then rounds
@@ -66,10 +67,16 @@ def exact_dc_quant(sums, cube: int, bias: float):
     there), and for perfect-square `cube` with half-integer bias the value
     is an exact multiple of 2^-51, where delta = 0 means no error at all.
     Re-check this margin before scaling S past 2^20 or using non-quadratic
-    divisor geometry.  Requires S >= 0 (pixels are uint8; asserted below —
-    a signed level shift would corrupt the limb split silently), bias >= 0,
-    and cube <= 4096 so S < 2^20.
+    divisor geometry.  Requires S >= 0 (pixels are uint8; a signed level
+    shift would corrupt the limb split silently), bias >= 0, and cube <=
+    4096 so S < 2^20; the last two raise ValueError (the original documents
+    the cube bound without checking it).
     """
+    if cube > 4096:
+        raise ValueError(
+            f"exact_dc_quant needs cube <= 4096 (sums < 2^20), got {cube}; "
+            "larger cubes keep the matmul's DC (codec/transform._quantize)"
+        )
     if bias < 0:
         raise ValueError(
             "exact_dc_quant requires bias >= 0 (B's limb split assumes a "

@@ -15,7 +15,9 @@ and peel or pack bytes around them, because Mosaic cannot transpose bytes;
 these transpose the bytes directly.
 
 CPU tensors take the plain versions (codec/framing.py, a transpose); CUDA
-tensors launch the kernel.  K1 and K4 cover 8x8x8 cubes only.
+tensors launch the kernel.  K1 and K4 cover 8x8x8 cubes only (``supports``);
+the codec takes framing's transposes for other geometries on every device,
+as the JAX package runs plain XLA there.
 """
 
 from __future__ import annotations
@@ -27,6 +29,13 @@ from ..codec import framing
 from ..config import CodecConfig
 
 _CUBE8 = CodecConfig()  # the 8x8x8 cube geometry the kernels implement
+
+
+def supports(cfg: CodecConfig, height: int, width: int) -> bool:
+    """K1 and K4 cover the 8x8x8 cube geometry (the test of
+    ``dct3d_tpu.ops.relayout.supports``)."""
+    return ((cfg.block_w, cfg.block_h, cfg.block_d) == (8, 8, 8)
+            and height % 8 == 0 and width % 8 == 0)
 
 
 def _geometry(t: int, h: int, w: int) -> int:

@@ -1,5 +1,6 @@
-"""The port's Exp-Golomb bit pack (K2 level 1, K3 level 2, pack_values)
-against the JAX package's, with exact equality throughout.
+"""The port's Exp-Golomb bit pack (K2 and K5 level 1, K3 level 2,
+pack_values and pack_bits) against the JAX package's, with exact equality
+throughout.
 
 The JAX side runs as its own tests run it on the CPU: the Pallas kernels in
 interpret mode, and pack_values through its XLA path.  On the CPU the
@@ -17,7 +18,7 @@ import torch
 
 from dct3d_tpu.ops import bitpack as j_bitpack
 from dct3d_tpu.ops import expgolomb as j_expgolomb
-from dct3d_tpu.ops.group_pack import group_pack_values_pallas
+from dct3d_tpu.ops.group_pack import GB, group_pack_pallas, group_pack_values_pallas
 from dct3d_tpu_torch.ops import bitpack, expgolomb, group_pack, splice
 
 torch.set_num_threads(2)
@@ -135,3 +136,125 @@ def test_pack_values_rejects_partial_groups(n):
     with pytest.raises(ValueError):
         bitpack.pack_values(torch.zeros(n, dtype=torch.int32),
                             torch.tensor(0), torch.tensor(0))
+
+
+def _codes(seed: int, g: int, max_wid: int = 27):
+    """K5 inputs as the JAX test of group_pack_pallas builds them: narrow
+    widths with 2% wide codewords, trailing zero-width pad slots in the last
+    group, random phases.  Codes are random 32-bit words (bits above the
+    width included, which the kernels add as the TPU kernel does) or, with
+    masked=True below, real payloads."""
+    rng = np.random.default_rng(seed)
+    wid = rng.integers(1, 5, (g, 256)).astype(np.int32)
+    hot = rng.random((g, 256)) < 0.02
+    wid[hot] = rng.integers(15, max_wid + 1, hot.sum())
+    wid[-1, 100:] = 0
+    code = rng.integers(0, 1 << 32, (g, 256), dtype=np.uint64).astype(np.uint32)
+    code[wid == 0] = 0
+    phase = rng.integers(0, 32, g).astype(np.int32)
+    return code, wid, phase
+
+
+def _k5(code, wid, phase, w_words):
+    return group_pack.group_pack_codes(
+        torch.from_numpy(code.view(np.int32)), torch.from_numpy(wid),
+        torch.from_numpy(phase), w_words).numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["raw", "masked"])
+def test_group_pack_codes_plain_matches_pallas(masked):
+    """K5's plain version against the Pallas kernel in interpret mode at
+    w_words 34 (the JAX package's budget width), GB + 3 groups."""
+    code, wid, phase = _codes(1, GB + 3)
+    if masked:
+        code &= ((np.uint64(1) << wid.astype(np.uint64)) - np.uint64(1)).astype(np.uint32)
+    want = np.asarray(jax.jit(functools.partial(group_pack_pallas, w_words=34,
+                                                interpret=True))(
+        jnp.asarray(code), jnp.asarray(wid), jnp.asarray(phase)))
+    np.testing.assert_array_equal(_k5(code, wid, phase, 34), want)
+
+
+@pytest.mark.parametrize("max_wid", [27, 32])
+def test_group_pack_codes_plain_matches_einsum_worst_case(max_wid):
+    """K5's plain version against the JAX einsum at the worst-case width,
+    where the JAX package never runs its Pallas kernel; 32-bit fields at
+    every phase included."""
+    code, wid, phase = _codes(2, GB + 3, max_wid)
+    wid[0, :33] = np.arange(33)  # widths 0..32 back to back
+    phase[:32] = np.arange(32)
+    code[wid == 0] = 0
+    w_words = bitpack.worst_case_w_words(256, max_wid)
+    want = np.asarray(jax.jit(j_bitpack._group_pack_einsum, static_argnums=3)(
+        code, wid, phase, w_words))
+    np.testing.assert_array_equal(_k5(code, wid, phase, w_words), want)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_pack_bits(impl: str, out_bytes: int):
+    return jax.jit(lambda c, w: j_bitpack.pack_bits(c, w, out_bytes, impl=impl))
+
+
+@pytest.mark.parametrize("n", [1, 2, 63, 64, 65, 257, 4099, 70_001])
+def test_pack_bits_matches_jax_and_numpy(n):
+    """pack_bits with a carry pseudo-codeword of 0..7 bits against JAX
+    pack_bits (XLA level 2 and the Pallas splice in interpret mode) and
+    pack_bits_np: bytes through the last partial byte, total bits, tail
+    byte, zeros past the stream."""
+    rng = np.random.default_rng(n)
+    vals = rng.integers(-5771, 5772, n).astype(np.int32)
+    code, width = j_expgolomb.codewords_np(vals)
+    carry_bits = n % 8
+    carry_code = int(rng.integers(0, 1 << carry_bits)) if carry_bits else 0
+    code = np.concatenate([[np.uint32(carry_code)], code])
+    width = np.concatenate([[np.int32(carry_bits)], width.astype(np.int32)])
+    buf, total, tail, overflow = bitpack.pack_bits(
+        torch.from_numpy(code.astype(np.int64)), torch.from_numpy(width), 32)
+    total, tail = int(total), int(tail)
+    nbytes = -(-total // 8)
+    assert not overflow and not buf[nbytes:].any()
+    ref, ref_bits = j_bitpack.pack_bits_np(code, width)
+    assert total == ref_bits and tail == int(ref[-1])
+    assert buf.numpy()[:nbytes].tobytes() == ref.tobytes()
+    out_bytes = nbytes + 8
+    for impl in ("xla", "pallas_interpret"):
+        jbuf, jtotal, jtail, jovf = _jax_pack_bits(impl, out_bytes)(code, width)
+        assert (int(jtotal), int(jtail), bool(jovf)) == (total, tail, False)
+        np.testing.assert_array_equal(np.asarray(jbuf)[:nbytes], ref)
+
+
+@pytest.mark.parametrize("carry_bits", [0, 3, 7])
+def test_pack_values_equals_pack_bits_on_whole_groups(carry_bits):
+    """pack_values (carry as a bit offset, K2) and pack_bits (carry as a
+    pseudo-codeword, K5) give the same stream on whole groups."""
+    rng = np.random.default_rng(carry_bits)
+    vals = rng.integers(-2000, 2000, 1536).astype(np.int32)
+    carry_code = int(rng.integers(0, 1 << carry_bits)) if carry_bits else 0
+    code, width = expgolomb.codewords(torch.from_numpy(vals))
+    a = bitpack.pack_values(torch.from_numpy(vals), torch.tensor(carry_code),
+                            torch.tensor(carry_bits), MAX_WIDTH)
+    b = bitpack.pack_bits(torch.cat([torch.tensor([carry_code]), code]),
+                          torch.cat([torch.tensor([carry_bits]), width]), MAX_WIDTH)
+    assert int(a[1]) == int(b[1]) and int(a[2]) == int(b[2])
+    nbytes = -(-int(a[1]) // 8)
+    assert torch.equal(a[0][:nbytes], b[0][:nbytes])
+
+
+def test_pack_bits_empty_and_limits():
+    """n == 0 gives the JAX function's zeros; widths over 32 bits and
+    batches that could pass 2^31 bits are refused."""
+    buf, total, tail, overflow = bitpack.pack_bits(
+        torch.zeros(0, dtype=torch.int64), torch.zeros(0, dtype=torch.int64))
+    assert not buf.any() and int(total) == 0 and int(tail) == 0 and not overflow
+    one = torch.ones(1, dtype=torch.int64)
+    with pytest.raises(ValueError, match="max_width"):
+        bitpack.pack_bits(one, one, max_width=33)
+    with pytest.raises(ValueError, match="2\\^31"):
+        bitpack.pack_bits(one.expand(1 << 26), one.expand(1 << 26), max_width=32)
+
+
+def test_group_pack_codes_rejects_bad_shapes():
+    g = torch.zeros((2, 256), dtype=torch.int32)
+    with pytest.raises(ValueError, match="256"):
+        group_pack.group_pack_codes(g, g[:1], torch.zeros(2, dtype=torch.int32), 8)
+    with pytest.raises(ValueError, match="phases"):
+        group_pack.group_pack_codes(g, g, torch.zeros(3, dtype=torch.int32), 8)

@@ -8,15 +8,20 @@ ragged (block columns that do not fill a thread block's run of 16);
 chip_smoke.py covers the 1080p shapes of the main path.
 """
 
+import zlib
+
 import numpy as np
 import pytest
 import torch
 
 from dct3d_tpu_torch import (
-    decode_turbo_container, decode_video, encode_turbo_video, encode_video,
-    kernels,
+    CodecConfig, TransformContext, decode_turbo_container, decode_video,
+    encode_turbo_video, encode_video, kernels,
 )
-from dct3d_tpu_torch.ops import bitpack, exc_pack, group_pack, relayout, splice
+from dct3d_tpu_torch.codec import entropy, framing, transform
+from dct3d_tpu_torch.ops import (
+    bitpack, dct, exc_pack, expgolomb, group_pack, relayout, splice,
+)
 
 torch.set_num_threads(2)
 
@@ -68,6 +73,83 @@ def test_bitpack_kernels_equal_plain(dev, carry_bits):
     nwords = bitpack.stream_words(v2.numel(), 27)
     k3 = splice.splice(k2, sw, ge, nwords)
     assert torch.equal(k3.cpu(), splice.splice_plain(k2.cpu(), sw.cpu(), ge.cpu(), nwords))
+
+
+@pytest.mark.parametrize("groups,w_words", [(1, 8), (3, 258), (300, 34), (257, 186)])
+def test_group_pack_codes_kernel_equals_plain(dev, groups, w_words):
+    """K5 on random 32-bit codes (bits above the width included: both
+    versions add the fragments), widths 0..32 at every phase, and narrow
+    rows that drop bits past w_words - 1."""
+    rng = np.random.default_rng(groups)
+    wid = rng.integers(0, 33, (groups, 256)).astype(np.int32)
+    wid[0, :33] = np.arange(33)
+    code = rng.integers(0, 1 << 32, (groups, 256), dtype=np.uint64).astype(np.uint32)
+    phase = (np.arange(groups) % 32).astype(np.int32)
+    args = [torch.from_numpy(a) for a in (code.view(np.int32), wid, phase)]
+    got = group_pack.group_pack_codes(*(a.to(dev) for a in args), w_words)
+    assert torch.equal(got.cpu(), group_pack.group_pack_codes_plain(*args, w_words))
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 70_001])
+def test_pack_bits_kernels_equal_plain(dev, n):
+    """pack_bits (K5 + K3) with a carry pseudo-codeword of 0..7 bits, on the
+    card and on the CPU: stream bytes, total bits and tail byte."""
+    rng = np.random.default_rng(n)
+    vals = torch.from_numpy(rng.integers(-2040, 2041, n).astype(np.int32))
+    for bits in range(8):
+        code, width = expgolomb.codewords(vals)
+        code = torch.cat([torch.tensor([int(rng.integers(0, 1 << bits))]), code])
+        width = torch.cat([torch.tensor([bits]), width])
+        want = bitpack.pack_bits(code, width, 23)
+        got = bitpack.pack_bits(code.to(dev), width.to(dev), 23)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert int(got[1]) == int(want[1]) and int(got[2]) == int(want[2])
+
+
+def _stream_ints(data: bytes, n: int) -> np.ndarray:
+    """The n quantized ints a reference-profile stream carries (the C
+    decoder's nibble plane with its exceptions put back)."""
+    raw = np.frombuffer(zlib.decompress(data), np.uint8)
+    plane, idx, val, _ = entropy.decode_values_planar4(raw, n)
+    ints = np.stack([(plane & 0xF).astype(np.int32), (plane >> 4).astype(np.int32)], 1)
+    ints = ((ints ^ 8) - 8).reshape(-1)
+    ints[idx] = val
+    return ints
+
+
+@pytest.mark.parametrize("dims,h,w", [((4, 4, 4), 36, 36), ((4, 4, 4), 48, 64), ((8, 8, 4), 48, 72)])
+def test_alternate_blocks_on_card_equal_cpu(dev, dims, h, w):
+    """Alternate blocks on the card: the stream carries exactly the card's
+    quantized ints, which differ from the CPU's only at rounding ties
+    (common in small cubes: many coefficients are exact multiples of 1/2,
+    and the two f32 matmuls round them apart); where the ints agree, the
+    streams are equal.  Pixels within 1 LSB of the CPU decode on < 1%;
+    36x36 at 4x4x4 packs with K5, the others with K2; K1 and K4 do not
+    run."""
+    cfg = CodecConfig(**dict(zip(("block_w", "block_h", "block_d"), dims)))
+    clip = synthetic_video(16, h, w, seed=8)
+    kernels.LAUNCHES.clear()
+    data = encode_video(clip, cfg, device=dev)
+    out = decode_video(data, w, h, 16, cfg, device=dev)
+    k5 = h * w * cfg.gop_size % 256 != 0  # values per GOP, not whole groups
+    assert kernels.LAUNCHES["splice"] > 0
+    assert (kernels.LAUNCHES["group_pack_codes"] > 0) == k5
+    assert (kernels.LAUNCHES["group_pack_values"] > 0) != k5
+    assert not kernels.LAUNCHES["frames_to_cubes"] and not kernels.LAUNCHES["cubes_to_frames"]
+    # GOP by GOP, as the encoder quantizes: the card's matmul may round a
+    # tie otherwise for another row count.
+    gops = torch.from_numpy(clip).split(cfg.gop_size)
+    q = torch.cat([transform.quantize_step(f.to(dev), TransformContext(cfg, dev)).cpu()
+                   for f in gops])
+    np.testing.assert_array_equal(_stream_ints(data, clip.size), q.reshape(-1).numpy())
+    q_cpu = torch.cat([transform.quantize_step(f, TransformContext(cfg, "cpu")) for f in gops])
+    x = (framing.frames_to_cubes(torch.from_numpy(clip), cfg).double()
+         @ torch.from_numpy(dct.encode_matrix(cfg, np.float64)))
+    diff = q != q_cpu
+    assert (((x.abs() % 1) - 0.5).abs()[diff] < 1e-3).all()
+    assert (data == encode_video(clip, cfg, device="cpu")) == (not diff.any())
+    d = np.abs(out.astype(np.int16) - decode_video(data, w, h, 16, cfg, device="cpu"))
+    assert d.max() <= 1 and (d > 0).mean() < 0.01
 
 
 def test_codec_on_card_equals_cpu(dev):

@@ -21,6 +21,7 @@ from dct3d_tpu import metrics as j_metrics
 from dct3d_tpu.codec import entropy as j_entropy
 from dct3d_tpu.codec import transform as j_transform
 from dct3d_tpu.codec import turbo as j_turbo
+from dct3d_tpu.io import pad as j_pad
 from dct3d_tpu.ops import dct as j_dct
 from dct3d_tpu.ops import exceptions as j_exceptions
 from dct3d_tpu.ops import quant as j_quant
@@ -28,6 +29,7 @@ from dct3d_tpu.ops import zigzag as j_zigzag
 from dct3d_tpu.parallel import multihost as j_multihost
 from dct3d_tpu_torch import config, metrics
 from dct3d_tpu_torch.codec import encoder, entropy, transform, turbo
+from dct3d_tpu_torch.io import pad
 from dct3d_tpu_torch.ops import dct, exceptions, quant, zigzag
 from dct3d_tpu_torch.parallel import multihost
 
@@ -55,34 +57,79 @@ def test_zigzag_tables_equal(dims):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("strength", [1, 5, 10])
-def test_quant_divisors_equal(strength):
-    np.testing.assert_array_equal(quant.quant_divisors(8, 8, 8, strength),
-                                  j_quant.quant_divisors(8, 8, 8, strength))
+BLOCKS = {"8x8x8": (8, 8, 8), "4x4x4": (4, 4, 4), "8x8x4": (8, 8, 4)}
 
 
-@pytest.mark.parametrize("strength", [1, 5, 10])
-def test_dct_matrices_bit_equal(strength):
-    cfg = config.CodecConfig(quant_strength=strength)
-    jcfg = j_config.CodecConfig(quant_strength=strength)
+def _by_block(values):
+    """pytest params over BLOCKS x values; the 8x8x8 cases keep the bare
+    value as their id."""
+    return [pytest.param(dims, v, id=str(v) if name == "8x8x8" else f"{name}-{v}")
+            for name, dims in BLOCKS.items() for v in values]
+
+
+@pytest.mark.parametrize("dims,strength", _by_block([1, 5, 10]))
+def test_quant_divisors_equal(dims, strength):
+    np.testing.assert_array_equal(quant.quant_divisors(*dims, strength),
+                                  j_quant.quant_divisors(*dims, strength))
+
+
+@pytest.mark.parametrize("dims,strength", _by_block([1, 5, 10]))
+def test_dct_matrices_bit_equal(dims, strength):
+    blocks = dict(zip(("block_w", "block_h", "block_d"), dims))
+    cfg = config.CodecConfig(quant_strength=strength, **blocks)
+    jcfg = j_config.CodecConfig(quant_strength=strength, **blocks)
     for fn in ("encode_matrix", "encode_matrix_pair", "decode_matrix"):
         a, b = getattr(dct, fn)(cfg), getattr(j_dct, fn)(jcfg)
         assert a.dtype == b.dtype == np.float32
+        assert a.shape == (cfg.cube_size, cfg.cube_size)
         assert a.tobytes() == b.tobytes()
 
 
-@pytest.mark.parametrize("bias", [0.5, 0.3])
-def test_exact_dc_quant_agrees(bias):
+@pytest.mark.parametrize("dims,bias", _by_block([0.5, 0.3]))
+def test_exact_dc_quant_agrees(dims, bias):
     """The copied exact-DC quantizer on torch int32 sums equals the
-    original on NumPy, and floor(S/sqrt(512) + bias), on 100k sums."""
-    sums = np.random.default_rng(3).integers(0, 512 * 255 + 1, 100_000)
-    sums[:2] = (0, 512 * 255)
-    got = quant.exact_dc_quant(torch.from_numpy(sums.astype(np.int32)), 512, bias)
+    original on NumPy, and floor(S/sqrt(cube) + bias), on 100k sums."""
+    cube = int(np.prod(dims))
+    sums = np.random.default_rng(3).integers(0, cube * 255 + 1, 100_000)
+    sums[:2] = (0, cube * 255)
+    got = quant.exact_dc_quant(torch.from_numpy(sums.astype(np.int32)), cube, bias)
     assert got.dtype == torch.int32
-    want = j_quant.exact_dc_quant(sums.astype(np.int64), 512, bias)
+    want = j_quant.exact_dc_quant(sums.astype(np.int64), cube, bias)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(
-        got.numpy(), np.floor(sums / np.sqrt(512.0) + bias).astype(np.int64))
+        got.numpy(), np.floor(sums / np.sqrt(float(cube)) + bias).astype(np.int64))
+
+
+def test_exact_dc_quant_checks_its_cube_bound():
+    """Above 4096 pixels the cube sums can pass 2^20 and the fixed-point
+    product its limbs, so the port's copy refuses (the original documents
+    the bound without checking it) and _quantize keeps the matmul's DC
+    there, as the JAX package's gate does."""
+    sums = torch.zeros(3, dtype=torch.int32)
+    assert quant.exact_dc_quant(sums, 4096, 0.5).shape == (3,)
+    with pytest.raises(ValueError, match="4096"):
+        quant.exact_dc_quant(sums, 4097, 0.5)
+    cfg = config.CodecConfig(block_w=16, block_h=16, block_d=32)
+    cubes = torch.full((2, cfg.cube_size), 255.0)
+    enc_t = torch.zeros((cfg.cube_size, 1))
+    enc_t[:, 0] = 1.0 / np.sqrt(cfg.cube_size)
+    q = transform._quantize(cubes, cubes.sum(1).to(torch.int32), enc_t, cfg)
+    assert q.tolist() == [[round(255 * np.sqrt(cfg.cube_size))]] * 2
+
+
+def test_pad_copy_equals_original():
+    """io/pad.py's copy against dct3d_tpu.io.pad, on odd and even sizes,
+    with and without a channel axis."""
+    rng = np.random.default_rng(4)
+    for shape, block in (((3, 5, 7), 4), ((2, 8, 8), 8), ((2, 6, 9, 3), 8), ((1, 2532, 1170), 4)):
+        frames = rng.integers(0, 256, shape, dtype=np.uint8)
+        assert pad.padded_geometry(shape[2], shape[1], block, block) == \
+            j_pad.padded_geometry(shape[2], shape[1], block, block)
+        got, want = pad.pad_frames(frames, block, block), j_pad.pad_frames(frames, block, block)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+        np.testing.assert_array_equal(pad.crop_frames(got, shape[2], shape[1]), frames)
+        np.testing.assert_array_equal(pad.crop_frames(got, 3, 2), j_pad.crop_frames(want, 3, 2))
+    assert pad.padded_geometry(1170, 2532, 4, 4) == (1172, 2532)
 
 
 def test_metrics_equal():
@@ -202,8 +249,9 @@ def test_port_imports_no_jax_subprocess():
     assert res.returncode == 0, res.stderr
     assert {"dct3d_tpu_torch.parallel", "dct3d_tpu_torch.parallel.multihost",
             "dct3d_tpu_torch.codec.turbo", "dct3d_tpu_torch.ops.exc_pack",
-            "dct3d_tpu_torch.ops.exceptions"} <= set(mods)
-    assert len(mods) >= 21
+            "dct3d_tpu_torch.ops.exceptions", "dct3d_tpu_torch.io",
+            "dct3d_tpu_torch.io.pad"} <= set(mods)
+    assert len(mods) >= 23
 
 
 @pytest.mark.parametrize("path", sorted(_port_modules()) + [os.path.join(ROOT, "chip_smoke.py")],

@@ -136,10 +136,9 @@ def test_truncated_and_corrupt_streams_raise(ctx, streams):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"cfg": CodecConfig(block_w=4, block_h=4, block_d=4)},
     {"cfg": CodecConfig(compute_dtype="bfloat16")},
     {"cfg": CodecConfig(transport_delta=True)},
-], ids=["4x4x4", "bf16", "transport_delta"])
+], ids=["bf16", "transport_delta"])
 def test_scope_guards_raise(kwargs):
     frames = np.zeros((8, 16, 16), np.uint8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
