@@ -8,19 +8,23 @@ and decode of the bench clip (1920x1080, 64 frames) at 8x8x8 cubes, and the
 4x4x4 paths — through their public entry points, and checks on the card:
 
   1. device   the card, its power limit, torch and CUDA versions;
-  2. build    nvcc builds the eight kernels (csrc/, one nvcc per source, in
+  2. build    nvcc builds the nine kernels (csrc/, one nvcc per source, in
               parallel) into one library;
-  3. kernels  K1-K4 and K6-K8 at one 1080p GOP's main-path shapes, and K5
-              at one padded-portrait 4x4x4 GOP's (46,368 groups), are
-              byte-equal to their plain PyTorch versions run on the CPU copy
-              of the same input, plus adversarial cases: bit pack with
-              |v| <= 5770, 27-bit codewords and carries 1..7; K5 with every
-              width 0..32 at every phase, and pack_bits (K5 + K3) after
-              carries 0..7 at n 1..70,001 and with a trailing zero-width
-              group; exception tables of groups holding more than 16
-              exceptions (overflow, then the 256-slot retry); median
+  3. kernels  K1-K4, group_bits and K6-K8 at one 1080p GOP's main-path
+              shapes, and K5 at one padded-portrait 4x4x4 GOP's (46,368
+              groups), are byte-equal to their plain PyTorch versions run on
+              the CPU copy of the same input (K2 over the words of each row
+              that it defines and K3 reads), plus adversarial cases: bit
+              pack with |v| <= 5770, 27-bit codewords and carries 1..7, and
+              at 64,801 and 1 groups; K5 with every width 0..32 at every
+              phase, and pack_bits (K5 + K3) after carries 0..7 at n
+              1..70,001 and with a trailing zero-width group; exception
+              tables of groups holding more than 16 exceptions (overflow,
+              then the 256-slot retry), and at 64,801 and 1 groups with
+              slots 1/16/255/256 and dc_stride 0/512/64/96; median
               CUDA-event times of each kernel and of its plain version run
-              on the card;
+              on the card, its bytes and their bound at 3.35 TB/s, and for
+              K7/K8 the library call t().contiguous();
   4. encode   encode_video with the parallel and the serial DEFLATE sink;
               GOP 0's quantized ints against float64 on the card;
   5. decode   decode_video of both streams with the encoder's index; GOP 0
@@ -34,7 +38,7 @@ and decode of the bench clip (1920x1080, 64 frames) at 8x8x8 cubes, and the
               zstandard module imports, and the per-GOP reference-profile
               fallback at quant 0 on a small clip;
   7. blocks   4x4x4 cubes: the bench clip (16 GOPs, whole 256-value groups,
-              so K2 + K3) and the 1170x2532 portrait screen padded to
+              so group_bits + K2 + K3) and the 1170x2532 portrait screen padded to
               1172x2532 (no GOP is whole groups, so pack_bits with K5 + K3)
               through encode, decode, range decode and crop, then turbo on
               the padded clip; streams carry the card's ints, the portrait
@@ -89,6 +93,8 @@ TURBO_CFG = {"deflate_workers": -1, "turbo_codec": "zlib", "zlib_level": 6}
 #   JAX_PLATFORMS=cpu python tools/jax_turbo_constants.py
 JAX_TURBO_BPP = 0.21424653983410494
 JAX_TURBO_DIGEST = "603c6366b5486bfbeaca5e35758cf8eb98f966d669b8d7d9f337fd642b44dd30"
+# H100 SXM device memory rate (NVIDIA's data sheet), for the kernels' bounds.
+HBM_BYTES_PER_S = 3.35e12
 # Column order of the pair-permuted encode matrix (dct.encode_matrix_pair).
 PAIR = np.concatenate([np.arange(0, 512, 2), np.arange(1, 512, 2)])
 
@@ -174,13 +180,28 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.cpu().double() - b.cpu().double()).abs().max())
 
 
+def tensor_bytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def add_row(rows: list, card: str, name: str, source: str, replaces: str,
-            err: float, ms: float, plain_ms: float) -> None:
+            err: float, ms: float, plain_ms: float, nbytes: int,
+            library_ms: float | None = None) -> None:
+    """One kernel's entry of the kernels line.  nbytes: what the function
+    must move at this run's inputs (each input read once, each output
+    written once); its bound is those bytes at the H100's memory rate (every
+    kernel here does a few integer or float operations per byte, far below
+    the card's compute peaks).  library_ms: one PyTorch call that computes
+    the same function, where there is one."""
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     rows.append({"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "max_abs_err": err, "ms": ms,
-                 "plain_ms": plain_ms})
+                 "plain_ms": plain_ms, "bytes": nbytes, "bound_ms": bound_ms,
+                 "bound_us": bound_ms * 1e3, "bound_by": "bytes",
+                 "library_ms": library_ms})
     emit(phase="kernels", kernel=name, max_abs_err=err, ms=ms,
-         plain_ms=plain_ms, card=card)
+         plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms,
+         library_ms=library_ms, card=card)
 
 
 def phase_device() -> tuple[str, str]:
@@ -208,8 +229,8 @@ def phase_kernels(gop0: np.ndarray, ctx, card: str) -> list[dict]:
     dev = ctx.device
     rows = []
 
-    def row(name, source, replaces, err, ms, plain_ms):
-        add_row(rows, card, name, source, replaces, err, ms, plain_ms)
+    def row(name, source, replaces, err, ms, plain_ms, nbytes):
+        add_row(rows, card, name, source, replaces, err, ms, plain_ms, nbytes)
 
     frames = torch.from_numpy(gop0).to(dev)
     cubes, sums = relayout.frames_to_cubes(frames)
@@ -219,7 +240,8 @@ def phase_kernels(gop0: np.ndarray, ctx, card: str) -> list[dict]:
     row("frames_to_cubes", "dct3d_tpu_torch/csrc/relayout.cu",
         "dct3d_tpu/ops/relayout.py:216", max_abs_err(cubes, p_cubes),
         median_ms(lambda: relayout.frames_to_cubes(frames)),
-        median_ms(lambda: relayout.frames_to_cubes_plain(frames)))
+        median_ms(lambda: relayout.frames_to_cubes_plain(frames)),
+        tensor_bytes(frames, cubes, sums))
 
     q = transform._quantize(cubes, sums, ctx.enc_t, ctx.cfg)
     v2 = q.reshape(-1, group_pack.GROUP)
@@ -228,40 +250,61 @@ def phase_kernels(gop0: np.ndarray, ctx, card: str) -> list[dict]:
     nwords = bitpack.stream_words(v2.numel(), max_width)
 
     def pack_pair(v2, code, bits):
-        """K2 then K3 on the card and on the CPU from identical inputs."""
+        """group_bits, K2 then K3 on the card and on the CPU from identical
+        inputs.  K2 defines the words of each row that hold its group's
+        bits, exactly those K3 reads, and leaves the rest unwritten: the
+        comparison covers those words (`defined`)."""
         code = torch.tensor(code, dtype=torch.int64, device=dev)
         bits = torch.tensor(bits, dtype=torch.int64, device=dev)
+        gb = group_pack.group_bits(v2)
+        check(torch.equal(gb.cpu(), group_pack.group_bits_plain(v2.cpu())),
+              "group_bits differs from its plain version")
         gstart, gend = bitpack.geometry(v2, bits)
         phase = (gstart & 31).to(torch.int32)
         k2 = group_pack.group_pack_values(v2, phase, w_words)
         p2 = group_pack.group_pack_values_plain(v2.cpu(), phase.cpu(), w_words)
-        check(torch.equal(k2.cpu(), p2), "K2 group_pack_values differs from its plain version")
-        bitpack.or_carry_lead(k2, code, bits)
         sw, ge = (gstart >> 5).to(torch.int32), gend.to(torch.int32)
+        nw = (((ge - 1) >> 5) - sw + 1).cpu()  # K3's count of words read
+        defined = torch.arange(w_words)[None, :] < nw[:, None]
+        check(torch.equal(k2.cpu()[defined], p2[defined]),
+              "K2 group_pack_values differs from its plain version")
+        bitpack.or_carry_lead(k2, code, bits)
         k3 = splice.splice(k2, sw, ge, nwords)
         p3 = splice.splice_plain(k2.cpu(), sw.cpu(), ge.cpu(), nwords)
         check(torch.equal(k3.cpu(), p3), "K3 splice differs from its plain version")
-        return phase, k2, sw, ge, k3, p2, p3
+        return gb, phase, k2, sw, ge, k3, p2, p3, defined, int(nw.sum())
 
-    phase, k2, sw, ge, k3, p2, p3 = pack_pair(v2, 0, 0)
+    gb, phase, k2, sw, ge, k3, p2, p3, defined, content = pack_pair(v2, 0, 0)
+    row("group_bits", "dct3d_tpu_torch/csrc/group_pack.cu",
+        "dct3d_tpu/ops/bitpack.py:255", max_abs_err(gb, group_pack.group_bits_plain(v2.cpu())),
+        median_ms(lambda: group_pack.group_bits(v2)),
+        median_ms(lambda: group_pack.group_bits_plain(v2)), tensor_bytes(v2, gb))
     row("group_pack_values", "dct3d_tpu_torch/csrc/group_pack.cu",
-        "dct3d_tpu/ops/group_pack.py:125", max_abs_err(k2, p2),
+        "dct3d_tpu/ops/group_pack.py:125", max_abs_err(k2.cpu()[defined], p2[defined]),
         median_ms(lambda: group_pack.group_pack_values(v2, phase, w_words)),
-        median_ms(lambda: group_pack.group_pack_values_plain(v2, phase, w_words)))
+        median_ms(lambda: group_pack.group_pack_values_plain(v2, phase, w_words)),
+        tensor_bytes(v2, phase) + 4 * content)
+    stream_bytes = 4 * -(-int(ge[-1]) // 32)  # the stream words K3 writes
     row("splice", "dct3d_tpu_torch/csrc/splice.cu", "dct3d_tpu/ops/splice.py:129",
         max_abs_err(k3, p3),
         median_ms(lambda: splice.splice(k2, sw, ge, nwords)),
-        median_ms(lambda: splice.splice_plain(k2, sw, ge, nwords)))
+        median_ms(lambda: splice.splice_plain(k2, sw, ge, nwords)),
+        4 * content + tensor_bytes(sw, ge) + stream_bytes)
 
     # Adversarial bit pack: every codeword up to the 27-bit bound, carries
-    # 1..7 with random carry codes, over one GOP's shape.
+    # 1..7 with random carry codes, over one GOP's shape; then group counts
+    # that leave a partial block of eight groups (64,801 and 1).
     rng = np.random.default_rng(7)
     bound = 5770
     for bits in range(1, 8):
         vals = rng.integers(-bound, bound + 1, v2.shape, dtype=np.int32)
         vals[rng.random(v2.shape) < 0.1] = bound * rng.choice([-1, 1])
-        pack_pair(torch.from_numpy(vals).to(dev), int(rng.integers(0, 1 << bits)), bits)
-    emit(phase="kernels", adversarial="K2+K3 byte-equal, |v|<=5770, carries 1..7")
+        adv = torch.from_numpy(vals).to(dev)
+        pack_pair(adv, int(rng.integers(0, 1 << bits)), bits)
+    pack_pair(torch.cat([v2, adv[:1]]), 5, 3)
+    pack_pair(adv[:1].clone(), 1, 1)
+    emit(phase="kernels", adversarial="group_bits+K2+K3 byte-equal, |v|<=5770, "
+         "carries 1..7; 64,801 and 1 groups")
 
     pixels = transform._dequant_matmul(
         v2.reshape(q.shape[0], -1, 2)[..., 0], v2.reshape(q.shape[0], -1, 2)[..., 1],
@@ -272,7 +315,8 @@ def phase_kernels(gop0: np.ndarray, ctx, card: str) -> list[dict]:
     row("cubes_to_frames", "dct3d_tpu_torch/csrc/relayout.cu",
         "dct3d_tpu/ops/relayout.py:258", max_abs_err(k4, p4),
         median_ms(lambda: relayout.cubes_to_frames(pixels, H, W)),
-        median_ms(lambda: relayout.cubes_to_frames_plain(pixels, H, W)))
+        median_ms(lambda: relayout.cubes_to_frames_plain(pixels, H, W)),
+        tensor_bytes(pixels, k4))
     return rows
 
 
@@ -294,6 +338,15 @@ def phase_turbo_kernels(gop0: np.ndarray, ctx, card: str) -> list[dict]:
         return max(max_abs_err(g, w) for g, w in zip(got, want))
 
     err = max(k6(v2, 16, 512), k6(v2, 256, 512), k6(v2, 16, 0))
+    # Group counts that leave a partial block of eight groups (the GOP plus
+    # one group, and one group) at slots 1..256 and DC strides of none, two
+    # powers of two and one that is not.
+    ragged = torch.cat([v2, v2[-1:]])
+    for slots in (1, 16, 255, 256):
+        for dc_stride in (0, 512, 64, 96):
+            err = max(err, k6(ragged, slots, dc_stride), k6(v2[:1].clone(), slots, dc_stride))
+    emit(phase="kernels", ragged=f"K6 byte-equal at {ragged.shape[0]} and 1 groups, "
+         "slots 1/16/255/256, dc_stride 0/512/64/96")
     # Adversarial: ~10% exceptions, ~25 per group, overflow 16 slots; the
     # 256-slot retry lists them all.
     rng = np.random.default_rng(8)
@@ -311,16 +364,20 @@ def phase_turbo_kernels(gop0: np.ndarray, ctx, card: str) -> list[dict]:
     add_row(rows, card, "compact_groups", "dct3d_tpu_torch/csrc/exc_pack.cu",
             "dct3d_tpu/ops/exc_pack.py:62", err,
             median_ms(lambda: exc_pack.compact_groups(v2, 16, 512)),
-            median_ms(lambda: exc_pack.compact_groups_plain(v2, 16, 512)))
+            median_ms(lambda: exc_pack.compact_groups_plain(v2, 16, 512)),
+            tensor_bytes(v2, *exc_pack.compact_groups(v2, 16, 512)))
 
     plane = turbo._plane_and_tables(qp, 16).plane.reshape(-1, 256)
     wire = relayout.plane_to_wire(plane)
     p_wire = relayout.plane_to_wire_plain(plane.cpu())
     check(torch.equal(wire.cpu(), p_wire), "K7 plane_to_wire differs from its plain version")
+    # The library call for K7 and K8 is their plain version itself, one
+    # transpose made contiguous; timed again here as the yardstick.
     add_row(rows, card, "plane_to_wire", "dct3d_tpu_torch/csrc/wire.cu",
             "dct3d_tpu/ops/relayout.py:97", max_abs_err(wire, p_wire),
             median_ms(lambda: relayout.plane_to_wire(plane)),
-            median_ms(lambda: relayout.plane_to_wire_plain(plane)))
+            median_ms(lambda: relayout.plane_to_wire_plain(plane)),
+            tensor_bytes(plane, wire), median_ms(lambda: plane.t().contiguous()))
     back = relayout.wire_to_plane(wire)
     p_back = relayout.wire_to_plane_plain(wire.cpu())
     check(torch.equal(back.cpu(), p_back), "K8 wire_to_plane differs from its plain version")
@@ -328,7 +385,8 @@ def phase_turbo_kernels(gop0: np.ndarray, ctx, card: str) -> list[dict]:
     add_row(rows, card, "wire_to_plane", "dct3d_tpu_torch/csrc/wire.cu",
             "dct3d_tpu/ops/relayout.py:146", max_abs_err(back, p_back),
             median_ms(lambda: relayout.wire_to_plane(wire)),
-            median_ms(lambda: relayout.wire_to_plane_plain(wire)))
+            median_ms(lambda: relayout.wire_to_plane_plain(wire)),
+            tensor_bytes(wire, back), median_ms(lambda: wire.t().contiguous()))
     return rows
 
 
@@ -398,7 +456,8 @@ def phase_k5_kernels(gop: np.ndarray, ctx, card: str) -> list[dict]:
     add_row(rows, card, "group_pack_codes", "dct3d_tpu_torch/csrc/group_pack.cu",
             "dct3d_tpu/ops/group_pack.py:159", err,
             median_ms(lambda: group_pack.group_pack_codes(code2, wid2, phase, w_words)),
-            median_ms(lambda: group_pack.group_pack_codes_plain(code2, wid2, phase, w_words)))
+            median_ms(lambda: group_pack.group_pack_codes_plain(code2, wid2, phase, w_words)),
+            tensor_bytes(code2, wid2, phase) + 4 * code2.shape[0] * w_words)
     return rows
 
 
@@ -664,7 +723,7 @@ def phase_blocks(clip: np.ndarray, smi: str) -> dict[str, int]:
     t0 = time.perf_counter()
     out = port.decode_video(data, W, H, T, cfg, ctx, positions=positions, sync_offsets=syncs)
     dec_s = time.perf_counter() - t0
-    got = launched("bench", ("group_pack_values", "splice"), ("group_pack_codes",))
+    got = launched("bench", ("group_bits", "group_pack_values", "splice"), ("group_pack_codes",))
     q = card_ints(clip, ctx)
     check(np.array_equal(stream_ints(data, clip.size), q.reshape(-1).numpy()),
           "the 4x4x4 bench stream does not carry the card's ints")
@@ -706,7 +765,8 @@ def phase_blocks(clip: np.ndarray, smi: str) -> dict[str, int]:
     prange = port.decode_frame_range(pdata, pw, ph, 5, 11, cfg, ctx, positions=positions,
                                      sync_offsets=syncs)
     cropped = port.crop_frames(pout, PW, PH)
-    k5_launches = launched("portrait", ("group_pack_codes", "splice"), ("group_pack_values",))
+    k5_launches = launched("portrait", ("group_pack_codes", "splice"),
+                           ("group_bits", "group_pack_values"))
     check(np.array_equal(prange, pout[5:11]), "4x4x4 decode_frame_range differs from the slice")
     check(cropped.shape == src.shape, f"cropped frames {cropped.shape} vs {src.shape}")
     q = card_ints(padded, ctx)
@@ -739,7 +799,7 @@ def phase_blocks(clip: np.ndarray, smi: str) -> dict[str, int]:
     tdec_s = time.perf_counter() - t0
     trange = port.decode_turbo_range(tdata, pw, ph, 5, 11, tcfg, tctx)
     got = launched("turbo", ("compact_groups", "plane_to_wire", "wire_to_plane"),
-                   ("group_pack_values", "group_pack_codes", "splice"))
+                   ("group_bits", "group_pack_values", "group_pack_codes", "splice"))
     members = multihost.split_members(tdata)
     check([m[2] for m in members] == [turbo.MEMBER_TURBO] * (PT // 4),
           "4x4x4 turbo: not one turbo member per GOP")

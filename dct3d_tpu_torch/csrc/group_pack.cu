@@ -1,32 +1,48 @@
-// K2 group_pack_values and K5 group_pack_codes: level 1 of the Exp-Golomb
-// bit pack.
+// Level 1 of the Exp-Golomb bit pack: group_bits, K2 group_pack_values and
+// K5 group_pack_codes.
 //
-// Replace dct3d_tpu/ops/group_pack.py group_pack_values_pallas (bodies
-// _kernel_values, _pack_body, _cumsum_lanes) and group_pack_pallas (body
-// _kernel).  Per group of 256 codewords: the in-group exclusive prefix sum
-// of the field widths, and each codeword written MSB-first into at most two
-// 32-bit words of a zero-filled row that starts at the group's global bit
-// phase (gstart & 31).  K2 derives each codeword from an int32 coefficient
-// (code = map(v) + 1, width 2*bitlen(code) - 1); K5 reads precomputed code
-// and width arrays (bitpack.pack_bits: the carry pseudo-codeword and the
-// zero-width pads of a batch that is not whole groups).  Word bits are
-// MSB-first within a uint32 value; the byte swap to stream byte order
-// happens in K3's store.
+// Replaces dct3d_tpu/ops/group_pack.py:125 group_pack_values_pallas (K2;
+// bodies _kernel_values, _pack_body, _cumsum_lanes), the per-group width sum
+// of dct3d_tpu/ops/bitpack.py:248 _geometry (group_bits; XLA on the TPU),
+// and dct3d_tpu/ops/group_pack.py:159 group_pack_pallas (K5; body _kernel).
+// Per group of 256 codewords: the in-group exclusive prefix sum of the field
+// widths, and each codeword written MSB-first into the group's row of
+// 32-bit words, starting at the group's global bit phase (gstart & 31).  K2
+// and group_bits derive each codeword from an int32 coefficient (code =
+// map(v) + 1, width 2*bitlen(code) - 1); K5 reads precomputed code and width
+// arrays (bitpack.pack_bits: the carry pseudo-codeword and the zero-width
+// pads of a batch that is not whole groups).  Word bits are MSB-first within
+// a uint32 value; the byte swap to stream byte order happens in K3's store.
 //
-// The TPU kernel sums one masked select per output word (w_words unrolled
-// compare/select/reduce passes) because Mosaic has no scatter, which is why
-// the JAX package keeps K5 to w_words <= 64.  Here each thread adds its
-// fragments into a shared-memory row with atomicAdd, one 256-thread block
-// per group, and the prefix sum is a warp shuffle scan; one kernel serves
-// every w_words.  Fragments are added, as the TPU kernel and the einsum
-// add them, so codes with bits above their width give the same words; for
-// real codewords the fragments are bit-disjoint and the sum is their OR.
-// Bound: latency of the scan and the shared atomics; device memory traffic
-// is 1 KB (K2) or 2 KB (K5) in and 4*w_words bytes out per group.
+// What bounds them on an H100 (3.35 TB/s), at one 1080p 8x8x8 GOP (64,800
+// groups, 16.6M values): bytes.  group_bits reads the 66.4 MB of values and
+// writes 0.26 MB of counts: 20 us.  K2 reads the values again and writes
+// only the words that hold the group's bits, ~11 a group on the bench clip
+// (2.8 MB): ~21 us.  Writing every one of a row's w_words = 218 words
+// would add 54 MB (16 us) of zeros that K3 never reads, so K2 does not.
 //
-// Widths are 0..32.  A zero-width slot writes nothing (its shift could
-// reach 32, which is undefined; the JAX body masks it with `where`).  Bits
-// landing past word w_words-1 are dropped, as in the TPU kernel.
+// Design of group_bits and K2: one warp per group, eight groups per block.
+// Lane l loads values [8l, 8l + 8) with two 16-byte loads and computes
+// their codewords and widths in registers.  group_bits sums them with one
+// warp reduction.  K2 scans the lanes' bit counts with __shfl_up (the
+// in-group offsets), then each lane writes its <= 8 * 32 bits into the
+// warp's row in shared memory: words it covers whole with plain stores, its
+// first and last partial words with shared atomicOr (neighbouring lanes
+// share them).  Only __syncwarp orders the zeroing, the fragments and the
+// coalesced copy of words [0, nw) to the output; there is no block barrier.
+// The TPU kernel instead sums one masked select per output word (w_words
+// unrolled compare/select/reduce passes), because Mosaic has no scatter.
+//
+// K5: one 256-thread block per group, each thread's fragments added into a
+// shared row with atomicAdd after a two-level shuffle scan, every one of
+// the w_words words written.  Fragments are added, as the TPU kernel and the
+// einsum add them, so codes with bits above their width give the same
+// words; for real codewords the fragments are bit-disjoint and the sum is
+// their OR.  Widths are 0..32; a zero-width slot writes nothing (its shift
+// could reach 32, which is undefined; the JAX body masks it with `where`).
+//
+// In all three, bits landing past word w_words-1 are dropped, as in the TPU
+// kernel.
 
 #include "common.cuh"
 
@@ -34,6 +50,92 @@ namespace dct3d {
 namespace {
 
 constexpr int kWarps = kGroup / 32;
+constexpr int kGroupsPerBlock = 8;  // group_bits, K2: one warp per group
+constexpr int kWarpThreads = 32 * kGroupsPerBlock;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Signed Exp-Golomb code number + 1 of v (ops/expgolomb.py): c = m + 1 with
+// m = 2v - 1 for v > 0, else -2v; its field is 2*bitlen(c) - 1 bits.
+__device__ __forceinline__ uint32_t eg_code(int32_t v) {
+  return (uint32_t)(v > 0 ? 2 * v - 1 : -2 * v) + 1u;
+}
+__device__ __forceinline__ int eg_width(uint32_t code) {
+  return 2 * (32 - __clz(code)) - 1;
+}
+
+__global__ void __launch_bounds__(kWarpThreads)
+group_bits_kernel(const int32_t* __restrict__ values, int32_t* __restrict__ bits,
+                  int groups) {
+  const int64_t g = (int64_t)blockIdx.x * kGroupsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (g >= groups) return;  // whole warps leave together
+  int32_t v[kPerLane];
+  load8(values + g * kGroup + lane * kPerLane, v);
+  int sum = 0;
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) sum += eg_width(eg_code(v[i]));
+  sum = __reduce_add_sync(kFull, sum);
+  if (lane == 0) bits[g] = sum;
+}
+
+__global__ void __launch_bounds__(kWarpThreads)
+group_pack_values_kernel(const int32_t* __restrict__ values,
+                         const int32_t* __restrict__ phase,
+                         uint32_t* __restrict__ out, int groups, int w_words) {
+  extern __shared__ uint32_t rows[];  // kGroupsPerBlock rows of w_words
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t g = (int64_t)blockIdx.x * kGroupsPerBlock + warp;
+  if (g >= groups) return;
+  uint32_t* row = rows + warp * w_words;
+
+  int32_t v[kPerLane];
+  load8(values + g * kGroup + lane * kPerLane, v);
+  uint32_t code[kPerLane];
+  int wid[kPerLane], bits = 0;
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) {
+    code[i] = eg_code(v[i]);
+    wid[i] = eg_width(code[i]);
+    bits += wid[i];
+  }
+  int incl = bits;  // inclusive scan of the lanes' bit counts
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, s);
+    if (lane >= s) incl += y;
+  }
+  const int p0 = phase[g];
+  const int end = p0 + __shfl_sync(kFull, incl, 31);  // row bit after the group
+  const int nw = min((end + 31) >> 5, w_words);       // words K3 reads
+  for (int j = lane; j < nw; j += 32) row[j] = 0;
+  __syncwarp();
+
+  // MSB-first bit writer: acc holds nb pending bits, right-aligned; it
+  // starts with the off & 31 bits of earlier lanes as zeros.
+  const int off = p0 + incl - bits;
+  int word = off >> 5, nb = off & 31;
+  bool shared_word = nb != 0;  // the first word holds earlier lanes' bits
+  uint64_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) {
+    acc = (acc << wid[i]) | code[i];  // nb + wid <= 63
+    nb += wid[i];
+    if (nb >= 32) {
+      nb -= 32;
+      const uint32_t w = (uint32_t)(acc >> nb);
+      if (word < w_words) {
+        if (shared_word) atomicOr(&row[word], w);
+        else row[word] = w;  // this lane covers all 32 bits
+      }
+      shared_word = false;
+      ++word;
+    }
+  }
+  if (nb > 0 && word < w_words) atomicOr(&row[word], (uint32_t)(acc << (32 - nb)));
+  __syncwarp();
+  uint32_t* dst = out + g * w_words;
+  for (int j = lane; j < nw; j += 32) dst[j] = row[j];
+}
 
 // One thread's codeword into the group's shared row; every thread of the
 // block calls it once.  `row` must hold w_words zeroed words before the
@@ -44,7 +146,7 @@ __device__ __forceinline__ void pack_row(uint32_t code, int width, int phase,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int incl = width;  // inclusive scan of the widths within the warp
   for (int s = 1; s < 32; s <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, incl, s);
+    const int y = __shfl_up_sync(kFull, incl, s);
     if (lane >= s) incl += y;
   }
   if (lane == 31) warp_total[warp] = incl;
@@ -67,20 +169,6 @@ __device__ __forceinline__ void pack_row(uint32_t code, int width, int phase,
 }
 
 __global__ void __launch_bounds__(kGroup)
-group_pack_values_kernel(const int32_t* __restrict__ values,
-                         const int32_t* __restrict__ phase,
-                         uint32_t* __restrict__ out, int w_words) {
-  extern __shared__ uint32_t row[];
-  const int64_t g = blockIdx.x;
-  const int t = threadIdx.x;
-  for (int j = t; j < w_words; j += kGroup) row[j] = 0;
-  const int v = values[g * kGroup + t];
-  const uint32_t code = (uint32_t)(v > 0 ? 2 * v - 1 : -2 * v) + 1u;
-  pack_row(code, 2 * (32 - __clz(code)) - 1, phase[g], row, w_words);
-  for (int j = t; j < w_words; j += kGroup) out[g * w_words + j] = row[j];
-}
-
-__global__ void __launch_bounds__(kGroup)
 group_pack_codes_kernel(const uint32_t* __restrict__ code,
                         const int32_t* __restrict__ width,
                         const int32_t* __restrict__ phase,
@@ -94,19 +182,38 @@ group_pack_codes_kernel(const uint32_t* __restrict__ code,
   for (int j = t; j < w_words; j += kGroup) out[g * w_words + j] = row[j];
 }
 
+unsigned warp_blocks(int groups) {
+  return (unsigned)((groups + kGroupsPerBlock - 1) / kGroupsPerBlock);
+}
+
 }  // namespace
 }  // namespace dct3d
 
-// values: (groups, 256) i32 with |v| < 2^15 (codewords of at most 31 bits);
-// phase: (groups,) i32 in [0, 32); out: (groups, w_words) u32 (every word
-// written).
+// values: (groups, 256) i32, 16-byte aligned; bits: (groups,) i32, each
+// group's codeword bits (sum of 2*bitlen(map(v) + 1) - 1).
+DCT3D_EXPORT int dct3d_group_bits(const void* values, void* bits, int groups,
+                                  void* stream) {
+  using namespace dct3d;
+  group_bits_kernel<<<warp_blocks(groups), kWarpThreads, 0,
+                      (cudaStream_t)stream>>>((const int32_t*)values,
+                                              (int32_t*)bits, groups);
+  return (int)cudaGetLastError();
+}
+
+// values: (groups, 256) i32 with |v| < 2^15 (codewords of at most 31 bits),
+// 16-byte aligned; phase: (groups,) i32 in [0, 32); out: (groups, w_words)
+// u32.  Words [0, nw) of each row are written, nw = ceil((phase + bits) /
+// 32) capped at w_words (exactly the words K3 reads); the rest are left
+// as they were.
 DCT3D_EXPORT int dct3d_group_pack_values(const void* values, const void* phase,
                                          void* out, int groups, int w_words,
                                          void* stream) {
   using namespace dct3d;
-  group_pack_values_kernel<<<groups, kGroup, w_words * sizeof(uint32_t),
+  group_pack_values_kernel<<<warp_blocks(groups), kWarpThreads,
+                             kGroupsPerBlock * w_words * sizeof(uint32_t),
                              (cudaStream_t)stream>>>(
-      (const int32_t*)values, (const int32_t*)phase, (uint32_t*)out, w_words);
+      (const int32_t*)values, (const int32_t*)phase, (uint32_t*)out, groups,
+      w_words);
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,11 @@
 // not VMEM-tile aligned), so the JAX package runs the XLA row gather
 // bitpack._place instead.  Contract: bitpack.pack_values' stream buffer.
 //
-// Each group's words were packed by K2 at the group's global bit phase, so
-// word j of group g IS stream word sw[g] + j.  Only a group's first and last
+// Each group's words were packed by K2 (or K5) at the group's global bit
+// phase, so word j of group g IS stream word sw[g] + j.  Only words
+// [0, nw) of a row are read, nw the words through the one holding bit
+// gend - 1: K2 defines exactly those and leaves the rest of the row
+// unwritten.  Only a group's first and last
 // word can hold another group's bits: the TPU kernel runs its grid in order
 // and carries that shared word in scratch memory, but blocks here run in no
 // order, so those two words are merged with atomicOr into a zeroed buffer
@@ -50,9 +53,10 @@ splice_kernel(const uint32_t* __restrict__ groups_buf,
 }  // namespace
 }  // namespace dct3d
 
-// groups_buf: (groups, w_words) u32 from K2 (carry lead already in word 0 of
-// group 0); sw: (groups,) i32 start word; gend: (groups,) i32 end bit
-// (exclusive); out: (nwords,) u32, ZEROED by the caller.
+// groups_buf: (groups, w_words) u32 from K2 or K5 (carry lead already in
+// word 0 of group 0), words past each group's content unread; sw: (groups,)
+// i32 start word; gend: (groups,) i32 end bit (exclusive); out: (nwords,)
+// u32, ZEROED by the caller.
 DCT3D_EXPORT int dct3d_splice(const void* groups_buf, const void* sw,
                               const void* gend, void* out, int groups,
                               int w_words, int nwords, void* stream) {

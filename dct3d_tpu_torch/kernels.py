@@ -53,6 +53,7 @@ _SIGNATURES = {
     # name: argtypes; every entry point returns cudaGetLastError() as int
     "dct3d_frames_to_cubes": [_P, _P, _P, _I, _I, _I, _P],
     "dct3d_cubes_to_frames": [_P, _P, _I, _I, _I, _P],
+    "dct3d_group_bits": [_P, _P, _I, _P],
     "dct3d_group_pack_values": [_P, _P, _P, _I, _I, _P],
     "dct3d_group_pack_codes": [_P, _P, _P, _P, _I, _I, _P],
     "dct3d_splice": [_P, _P, _P, _P, _I, _I, _I, _P],
@@ -143,3 +144,9 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors must share one CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def check_aligned16(name: str, t: torch.Tensor) -> None:
+    """For kernels that read their input with 16-byte vector loads."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: input must start on a 16-byte boundary")

@@ -3,10 +3,12 @@
 The port's counterpart of ``dct3d_tpu.ops.bitpack``.  ``pack_values`` packs
 a batch of whole 256-value groups in five steps:
 
-  1. group geometry — each group's bit count and start bit (one cumsum over
-     the groups, plain torch as it is plain XLA in the JAX package), its
-     start word and its bit phase within that word;
-  2. level 1, K2 (ops/group_pack.py): each group packed at its phase;
+  1. group geometry — each group's bit count (group_bits, ops/group_pack.py)
+     and start bit (one cumsum over the groups, plain torch as it is plain
+     XLA in the JAX package), its start word and its bit phase within that
+     word;
+  2. level 1, K2 (ops/group_pack.py): each group packed at its phase, the
+     words that hold its bits defined;
   3. the carry — the previous batch's partial byte — ORed into word 0;
   4. level 2, K3 (ops/splice.py): groups placed at their start words;
   5. the tail byte (the byte holding the last bit, the next batch's carry
@@ -64,10 +66,12 @@ def _check_batch(n: int, max_width: int) -> None:
 def geometry(v2: torch.Tensor, carry_bits: torch.Tensor):
     """Group bit geometry of (g, 256) values after a carry of carry_bits
     bits: (gstart, gend) int64, each group's first bit and end bit
-    (exclusive).  Start word = gstart >> 5, phase = gstart & 31."""
-    _, wid = expgolomb.codewords(v2)
-    gbits = wid.sum(1)
-    gstart = torch.cumsum(gbits, 0) - gbits + carry_bits
+    (exclusive).  Start word = gstart >> 5, phase = gstart & 31.  The bit
+    counts come from group_bits (a kernel on the card); the cumsum runs in
+    int64.  On the card v2 must start on a 16-byte boundary (group_bits
+    reads it with 16-byte loads), or group_bits raises ValueError."""
+    gbits = group_pack.group_bits(v2)
+    gstart = torch.cumsum(gbits, 0, dtype=torch.int64) - gbits + carry_bits
     return gstart, gstart + gbits
 
 
@@ -75,14 +79,20 @@ def or_carry_lead(buf_groups: torch.Tensor, carry_code: torch.Tensor,
                   carry_bits: torch.Tensor) -> None:
     """OR the carry's bits into word 0 of group 0, in place.  They live at
     [0, carry_bits) of word 0 and group 0 starts at bit carry_bits, so
-    nothing overlaps.  The shift is masked to dodge a shift by 32 when
+    nothing overlaps.  Word 0 is always among the words [0, nw) that K2
+    defines in a row; words past nw hold no defined value on the card.  The shift is masked to dodge a shift by 32 when
     carry_bits == 0, which `where` discards."""
     lead = torch.where(carry_bits > 0, carry_code << ((32 - carry_bits) & 31), 0)
     buf_groups[0, :1].bitwise_or_(expgolomb.to_word_bits(lead.reshape(1)))
 
 
 def _finish(buf_groups, gstart, gend, n: int, max_width: int):
-    """Level 2 (K3) and the tail byte: (buf, total_bits, tail_byte, False)."""
+    """Level 2 (K3) and the tail byte: (buf, total_bits, tail_byte, False).
+
+    Only words [0, nw) of each row of buf_groups are read, nw the words
+    through the one holding the group's bit gend - 1: K2 defines no others
+    on the card (the plain version zeroes them).
+    """
     buf = splice.splice(buf_groups, (gstart >> 5).to(torch.int32),
                         gend.to(torch.int32), stream_words(n, max_width))
     total_bits = gend[-1]
@@ -97,7 +107,9 @@ def pack_values(values: torch.Tensor, carry_code: torch.Tensor,
     values: (n,) int32 with n a nonzero multiple of 256, codewords at most
     ``max_width`` (<= 32) bits.  carry_code / carry_bits: 0-d int64 tensors
     on the same device, the carry's value right-aligned in carry_bits
-    (0..7) bits; the stream starts with those bits.
+    (0..7) bits; the stream starts with those bits.  On the card values
+    must start on a 16-byte boundary (a fresh tensor does; a view that
+    starts mid-row may not), or ValueError is raised.
 
     Returns (buf, total_bits, tail_byte, overflow) like the JAX function:
     buf the (4 * nwords,) uint8 MSB-first stream, zero past total_bits;

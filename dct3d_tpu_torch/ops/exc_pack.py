@@ -57,6 +57,7 @@ def compact_groups(v2: torch.Tensor, slots: int,
     if v2.device.type == "cpu":
         return compact_groups_plain(v2, slots, dc_stride)
     kernels.check_cuda("compact_groups", v2)
+    kernels.check_aligned16("compact_groups", v2)
     g = v2.shape[0]
     lidx = torch.empty((g, slots), dtype=torch.uint8, device=v2.device)
     vals = torch.empty((g, slots), dtype=torch.int16, device=v2.device)

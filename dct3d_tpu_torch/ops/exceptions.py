@@ -36,7 +36,10 @@ def compact_exceptions(values: torch.Tensor, slots: int = DEFAULT_SLOTS,
         are incomplete; retry with slots=256).
 
     dc_stride > 0 excludes positions with flat index % dc_stride == 0 (the
-    DC coefficient of every cube), which the turbo wire ships densely.
+    DC coefficient of every cube), which the turbo wire ships densely.  On
+    the card, values whose length is a multiple of 256 must start on a
+    16-byte boundary (K6 reads it with 16-byte loads), or ValueError is
+    raised; other lengths are padded into a fresh tensor first.
     """
     n = values.shape[0]
     pad = (-n) % exc_pack.GROUP

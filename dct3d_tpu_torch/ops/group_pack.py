@@ -1,12 +1,15 @@
-"""Wrappers of K2 and K5 (csrc/group_pack.cu): level 1 of the Exp-Golomb
-bit pack.
+"""Wrappers of group_bits, K2 and K5 (csrc/group_pack.cu): level 1 of the
+Exp-Golomb bit pack.
 
-K2 replaces ``dct3d_tpu.ops.group_pack.group_pack_values_pallas``: per group
-of 256 int32 coefficients, each codeword is written MSB-first at its
-in-group bit offset (a prefix sum of the widths) plus the group's global bit
-phase, into a zero-filled row of ``w_words`` 32-bit words.  K5 replaces
-``group_pack_pallas``: the same pack from precomputed codes and widths
-(``bitpack.pack_bits``).
+group_bits replaces the per-group width sum of
+``dct3d_tpu.ops.bitpack._geometry`` (XLA on the TPU): each group's codeword
+bit count, the input of the group geometry's cumsum.  K2 replaces
+``dct3d_tpu.ops.group_pack.group_pack_values_pallas``: per group of 256
+int32 coefficients, each codeword is written MSB-first at its in-group bit
+offset (a prefix sum of the widths) plus the group's global bit phase, into
+a row of ``w_words`` 32-bit words.  K5 replaces ``group_pack_pallas``: the
+same pack from precomputed codes and widths (``bitpack.pack_bits``), into a
+zero-filled row.
 
 Words travel as int32 tensors holding the uint32 bit patterns (torch on
 the CPU has no uint32 shifts).  CPU tensors take the plain versions, the
@@ -46,9 +49,15 @@ def _pack_plain(code: torch.Tensor, wid: torch.Tensor, phase: torch.Tensor,
     return expgolomb.to_word_bits(rows[:, :w_words] & _MASK32)
 
 
+def group_bits_plain(values: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of group_bits (same contract)."""
+    return expgolomb.codewords(values)[1].sum(1, dtype=torch.int32)
+
+
 def group_pack_values_plain(values: torch.Tensor, phase: torch.Tensor,
                             w_words: int) -> torch.Tensor:
-    """Plain PyTorch version of K2 (same contract as group_pack_values)."""
+    """Plain PyTorch version of K2 (same contract as group_pack_values,
+    with every word past a group's content zero)."""
     return _pack_plain(*expgolomb.codewords(values), phase, w_words)
 
 
@@ -59,13 +68,29 @@ def group_pack_codes_plain(code: torch.Tensor, width: torch.Tensor,
                        phase, w_words)
 
 
-def _check_groups(name: str, phase: torch.Tensor, *rows: torch.Tensor) -> None:
+def _check_groups(name: str, *rows: torch.Tensor) -> None:
     for t in rows:
         if (t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != GROUP
                 or not t.shape[0] or t.shape != rows[0].shape):
             raise ValueError(f"{name} takes (g>0, 256) int32 tensors")
-    if phase.dtype != torch.int32 or phase.shape != rows[0].shape[:1]:
+
+
+def _check_phase(name: str, phase: torch.Tensor, groups: int) -> None:
+    if phase.dtype != torch.int32 or phase.shape != (groups,):
         raise ValueError(f"{name} takes (g,) int32 phases")
+
+
+def group_bits(values: torch.Tensor) -> torch.Tensor:
+    """(g, 256) int32 coefficients -> (g,) int32: each group's Exp-Golomb
+    bit count, the sum of 2*bitlen(map(v) + 1) - 1 over its values."""
+    _check_groups("group_bits", values)
+    if values.device.type == "cpu":
+        return group_bits_plain(values)
+    kernels.check_cuda("group_bits", values)
+    kernels.check_aligned16("group_bits", values)
+    out = torch.empty((values.shape[0],), dtype=torch.int32, device=values.device)
+    kernels.launch("group_bits", values.device, values, out, values.shape[0])
+    return out
 
 
 def group_pack_values(values: torch.Tensor, phase: torch.Tensor,
@@ -73,13 +98,18 @@ def group_pack_values(values: torch.Tensor, phase: torch.Tensor,
     """K2: (g, 256) int32 coefficients + (g,) int32 bit phases in [0, 32)
     -> (g, w_words) int32 words (uint32 bit patterns), MSB-first.
 
-    Codewords must be at most 32 bits wide; bits past word w_words-1 are
-    dropped, so size w_words with bitpack.worst_case_w_words.
+    Words [0, nw) of each row are defined, nw = ceil((phase + bits) / 32)
+    capped at w_words with bits = group_bits(values): exactly the words K3
+    reads.  The kernel leaves the rest unwritten; the plain version zeroes
+    them.  Codewords must be at most 32 bits wide; bits past word w_words-1
+    are dropped, so size w_words with bitpack.worst_case_w_words.
     """
-    _check_groups("group_pack_values", phase, values)
+    _check_groups("group_pack_values", values)
+    _check_phase("group_pack_values", phase, values.shape[0])
     if values.device.type == "cpu":
         return group_pack_values_plain(values, phase, w_words)
     kernels.check_cuda("group_pack_values", values, phase)
+    kernels.check_aligned16("group_pack_values", values)
     out = torch.empty((values.shape[0], w_words), dtype=torch.int32,
                       device=values.device)
     kernels.launch("group_pack_values", values.device, values, phase, out,
@@ -92,11 +122,12 @@ def group_pack_codes(code: torch.Tensor, width: torch.Tensor,
     """K5: (g, 256) int32 codes (uint32 bit patterns, the field's payload
     right-aligned) + (g, 256) int32 widths in [0, 32] + (g,) int32 bit
     phases in [0, 32) -> (g, w_words) int32 words, MSB-first, each group
-    packed at its phase.
+    packed at its phase, every word written.
 
     Zero-width slots write nothing; bits past word w_words-1 are dropped.
     """
-    _check_groups("group_pack_codes", phase, code, width)
+    _check_groups("group_pack_codes", code, width)
+    _check_phase("group_pack_codes", phase, code.shape[0])
     if code.device.type == "cpu":
         return group_pack_codes_plain(code, width, phase, w_words)
     kernels.check_cuda("group_pack_codes", code, width, phase)

@@ -39,6 +39,7 @@ def splice(groups_buf: torch.Tensor, sw: torch.Tensor, gend: torch.Tensor,
     """K3: (g, W) int32 group words (K2's output, carry lead included),
     (g,) int32 start words ``sw`` and (g,) int32 end bits ``gend``
     (exclusive) -> (4 * nwords,) uint8 stream bytes, zero past the stream.
+    Only each row's words through the one holding bit gend - 1 are read.
     """
     if groups_buf.dtype != torch.int32 or groups_buf.dim() != 2 or not groups_buf.shape[0]:
         raise ValueError("splice takes (g>0, W) int32 group words")

@@ -62,7 +62,9 @@ def _jax_group_pack():
 @pytest.mark.parametrize("max_abs", RANGES)
 def test_group_pack_plain_matches_pallas(max_abs):
     """K2's plain version against the Pallas kernel (interpret mode), over
-    the words each group writes, at random phases."""
+    the words each group writes, at random phases.  The plain version zeroes
+    every word past those: on the card K2 defines only words [0, nw), and a
+    change to either route has to keep that contract."""
     g = 4
     vals = _values(max_abs, g * 256).reshape(g, 256)
     phase = np.random.default_rng(max_abs).integers(0, 32, g).astype(np.int32)
@@ -258,3 +260,68 @@ def test_group_pack_codes_rejects_bad_shapes():
         group_pack.group_pack_codes(g, g[:1], torch.zeros(2, dtype=torch.int32), 8)
     with pytest.raises(ValueError, match="phases"):
         group_pack.group_pack_codes(g, g, torch.zeros(3, dtype=torch.int32), 8)
+
+
+@pytest.mark.parametrize("max_abs", RANGES)
+@pytest.mark.parametrize("carry_bits", range(8))
+def test_group_bits_matches_jax_geometry(carry_bits, max_abs):
+    """group_bits' plain route against gbits of the JAX package's
+    _geometry, and geometry's int64 start and end bits against its gstart
+    and gstart + gbits after a carry of carry_bits bits."""
+    vals = _values(max_abs).reshape(-1, 256)
+    got = group_pack.group_bits(torch.from_numpy(vals))
+    assert got.dtype == torch.int32 and got.shape == (vals.shape[0],)
+    _, wid = j_expgolomb.codewords_np(vals.reshape(-1))
+    gbits, gstart, total, *_ = j_bitpack._geometry(
+        jnp.asarray(wid.astype(np.int32).reshape(vals.shape)), jnp.int32(carry_bits), W_WORDS)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(gbits))
+    start, end = bitpack.geometry(torch.from_numpy(vals), torch.tensor(carry_bits))
+    assert start.dtype == end.dtype == torch.int64
+    np.testing.assert_array_equal(start.numpy(), np.asarray(gstart))
+    np.testing.assert_array_equal(end.numpy(), np.asarray(gstart) + np.asarray(gbits))
+    assert int(end[-1]) == int(total)
+
+
+def test_geometry_takes_group_bits_kernel_off_the_cpu(monkeypatch):
+    """For a tensor that is not on the CPU (meta here), geometry and
+    pack_values' level 1 take the kernel route and never the plain
+    versions.  kernels.launch is replaced by a recorder and the CUDA
+    checks are dropped, so that the kernel route runs on meta tensors."""
+    from dct3d_tpu_torch import kernels
+
+    calls = []
+    monkeypatch.setattr(kernels, "launch", lambda name, *a: calls.append(name))
+    monkeypatch.setattr(kernels, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(kernels, "check_aligned16", lambda *a: None)
+    for name in ("group_bits_plain", "group_pack_values_plain"):
+        monkeypatch.setattr(group_pack, name, lambda *a: pytest.fail("plain route"))
+    v2 = torch.empty((3, 256), dtype=torch.int32, device="meta")
+    start, end = bitpack.geometry(v2, torch.zeros((), dtype=torch.int64, device="meta"))
+    assert calls == ["group_bits"] and start.dtype == torch.int64
+    group_pack.group_pack_values(v2, torch.empty(3, dtype=torch.int32, device="meta"),
+                                 W_WORDS)
+    assert calls == ["group_bits", "group_pack_values"]
+
+
+@pytest.mark.parametrize("route", ["geometry", "pack_values", "pack_bits"])
+def test_cpu_tensors_never_launch(monkeypatch, route):
+    """CPU tensors take the plain versions: kernels.launch is never
+    reached."""
+    from dct3d_tpu_torch import kernels
+
+    monkeypatch.setattr(kernels, "launch", lambda *a: pytest.fail("launched"))
+    vals = torch.from_numpy(_values(300))
+    zero = torch.tensor(0)
+    if route == "geometry":
+        bitpack.geometry(vals.reshape(-1, 256), zero)
+    elif route == "pack_values":
+        bitpack.pack_values(vals, torch.tensor(3), torch.tensor(2), MAX_WIDTH)
+    else:
+        bitpack.pack_bits(*expgolomb.codewords(vals[:1000]), MAX_WIDTH)
+
+
+def test_group_bits_rejects_bad_shapes():
+    with pytest.raises(ValueError, match="256"):
+        group_pack.group_bits(torch.zeros((2, 255), dtype=torch.int32))
+    with pytest.raises(ValueError, match="256"):
+        group_pack.group_bits(torch.zeros((0, 256), dtype=torch.int32))

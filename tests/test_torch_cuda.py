@@ -56,6 +56,13 @@ def test_relayout_kernels_equal_plain(dev, shape):
     assert torch.equal(got.cpu(), relayout.cubes_to_frames_plain(pixels, h, w))
 
 
+def _defined(phase, bits, w_words):
+    """(g, w_words) mask of the words K2 defines and K3 reads: those that
+    hold the group's bits, up to w_words."""
+    nw = ((phase.to(torch.int64) + bits + 31) >> 5).clamp(max=w_words)
+    return torch.arange(w_words)[None, :] < nw[:, None]
+
+
 @pytest.mark.parametrize("carry_bits", range(8))
 def test_bitpack_kernels_equal_plain(dev, carry_bits):
     rng = np.random.default_rng(carry_bits)
@@ -65,14 +72,43 @@ def test_bitpack_kernels_equal_plain(dev, carry_bits):
     code = torch.tensor(int(rng.integers(0, 1 << carry_bits)), device=dev)
     bits = torch.tensor(carry_bits, device=dev)
     gstart, gend = bitpack.geometry(v2, bits)
+    assert torch.equal(group_pack.group_bits(v2).cpu(), group_pack.group_bits_plain(v2.cpu()))
     phase = (gstart & 31).to(torch.int32)
     k2 = group_pack.group_pack_values(v2, phase, 218)
-    assert torch.equal(k2.cpu(), group_pack.group_pack_values_plain(v2.cpu(), phase.cpu(), 218))
+    p2 = group_pack.group_pack_values_plain(v2.cpu(), phase.cpu(), 218)
+    defined = _defined(phase.cpu(), (gend - gstart).cpu(), 218)
+    assert torch.equal(k2.cpu()[defined], p2[defined])
     bitpack.or_carry_lead(k2, code, bits)
     sw, ge = (gstart >> 5).to(torch.int32), gend.to(torch.int32)
     nwords = bitpack.stream_words(v2.numel(), 27)
     k3 = splice.splice(k2, sw, ge, nwords)
     assert torch.equal(k3.cpu(), splice.splice_plain(k2.cpu(), sw.cpu(), ge.cpu(), nwords))
+
+
+@pytest.mark.parametrize("groups", [1, 7, 9, 801])
+@pytest.mark.parametrize("w_words", [218, 186, 8])
+def test_group_pack_values_kernel_contract(dev, groups, w_words):
+    """group_bits byte-equal to its plain version, and K2's output
+    contract, at group counts that leave a partial block of eight groups:
+    the words that hold a group's bits equal the plain version's (bits past
+    w_words dropped alike at w_words 8), and the kernel leaves every later
+    word as it found it."""
+    from dct3d_tpu_torch import kernels
+
+    rng = np.random.default_rng(groups + w_words)
+    vals = rng.integers(-5770, 5771, (groups, 256)).astype(np.int32)
+    vals[rng.random(vals.shape) < 0.7] = 0
+    v2 = torch.from_numpy(vals)
+    bits = group_pack.group_bits(v2.to(dev))
+    assert torch.equal(bits.cpu(), group_pack.group_bits_plain(v2))
+    phase = torch.from_numpy(rng.integers(0, 32, groups).astype(np.int32))
+    out = torch.full((groups, w_words), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+    kernels.launch("group_pack_values", dev, v2.to(dev), phase.to(dev), out, groups, w_words)
+    torch.cuda.synchronize()
+    defined = _defined(phase, bits.cpu().to(torch.int64), w_words)
+    want = group_pack.group_pack_values_plain(v2, phase, w_words)
+    assert torch.equal(out.cpu()[defined], want[defined])
+    assert (out.cpu()[~defined] == 0x5A5A5A5A).all()
 
 
 @pytest.mark.parametrize("groups,w_words", [(1, 8), (3, 258), (300, 34), (257, 186)])
@@ -135,6 +171,7 @@ def test_alternate_blocks_on_card_equal_cpu(dev, dims, h, w):
     assert kernels.LAUNCHES["splice"] > 0
     assert (kernels.LAUNCHES["group_pack_codes"] > 0) == k5
     assert (kernels.LAUNCHES["group_pack_values"] > 0) != k5
+    assert (kernels.LAUNCHES["group_bits"] > 0) != k5
     assert not kernels.LAUNCHES["frames_to_cubes"] and not kernels.LAUNCHES["cubes_to_frames"]
     # GOP by GOP, as the encoder quantizes: the card's matmul may round a
     # tie otherwise for another row count.
@@ -160,7 +197,7 @@ def test_codec_on_card_equals_cpu(dev):
     data = encode_video(clip, device=dev)
     out = decode_video(data, 72, 48, 24, device=dev)
     assert all(kernels.LAUNCHES[k] > 0 for k in (
-        "frames_to_cubes", "group_pack_values", "splice", "cubes_to_frames"))
+        "frames_to_cubes", "group_bits", "group_pack_values", "splice", "cubes_to_frames"))
     assert data == encode_video(clip, device="cpu")
     d = np.abs(out.astype(np.int16) - decode_video(data, 72, 48, 24, device="cpu"))
     assert d.max() <= 1 and (d > 0).mean() < 0.01
@@ -168,10 +205,12 @@ def test_codec_on_card_equals_cpu(dev):
 
 @pytest.mark.parametrize("groups,slots,dc_stride", [
     (37, 16, 512), (37, 256, 512), (300, 16, 0), (300, 4, 96), (5, 1, 64),
-])
+] + [(g, s, d) for g in (1, 801) for s in (1, 16, 255, 256) for d in (0, 512, 64, 96)])
 def test_compact_groups_kernel_equals_plain(dev, groups, slots, dc_stride):
     """K6, tables compared whole (both zero the padding slots), on content
-    dense enough that many groups overflow 16 slots."""
+    dense enough that many groups overflow 16 slots; 1 and 801 groups leave
+    a partial block of eight groups, at slots 1..256 and DC strides of
+    none, powers of two and one that is not."""
     rng = np.random.default_rng(groups + slots)
     vals = np.where(rng.random((groups, 256)) < 0.1,
                     rng.integers(-5771, 5772, (groups, 256)),
@@ -181,6 +220,31 @@ def test_compact_groups_kernel_equals_plain(dev, groups, slots, dc_stride):
     want = exc_pack.compact_groups_plain(v2, slots, dc_stride)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("entry", [
+    "pack_values", "geometry", "group_pack_values", "compact_exceptions", "compact_groups"])
+def test_misaligned_view_raises(dev, entry):
+    """group_bits, K2 and K6 read their values with 16-byte loads: a
+    contiguous view that starts 4 bytes into its storage raises ValueError
+    at each entry point that reaches them, and launches nothing."""
+    from dct3d_tpu_torch.ops import exceptions
+
+    flat = torch.zeros(2 * 256 + 1, dtype=torch.int32, device=dev)[1:]
+    v2 = flat.reshape(-1, 256)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    calls = {
+        "pack_values": lambda: bitpack.pack_values(flat, zero, zero, 27),
+        "geometry": lambda: bitpack.geometry(v2, zero),
+        "group_pack_values": lambda: group_pack.group_pack_values(
+            v2, torch.zeros(2, dtype=torch.int32, device=dev), 218),
+        "compact_exceptions": lambda: exceptions.compact_exceptions(flat, 16, 512),
+        "compact_groups": lambda: exc_pack.compact_groups(v2, 16, 512),
+    }
+    kernels.LAUNCHES.clear()
+    with pytest.raises(ValueError, match="16-byte"):
+        calls[entry]()
+    assert not any(kernels.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("cubes", [1, 37, 128, 300, 1023])

@@ -36,7 +36,7 @@ def groups():
     return _values(GROUPS * 256, seed=11).reshape(GROUPS, 256)
 
 
-@pytest.mark.parametrize("slots", [4, 16, 256])
+@pytest.mark.parametrize("slots", [1, 4, 16, 256])
 @pytest.mark.parametrize("dc_stride", [0, 512, 64, 96])
 def test_compact_groups_equals_pallas(groups, slots, dc_stride):
     """K6's plain version against compact_groups_pallas(interpret=True):
