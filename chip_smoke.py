@@ -13,12 +13,15 @@ and decode of the bench clip (1920x1080, 64 frames) at 8x8x8 cubes, and the
   3. kernels  K1-K4, group_bits and K6-K8 at one 1080p GOP's main-path
               shapes, and K5 at one padded-portrait 4x4x4 GOP's (46,368
               groups), are byte-equal to their plain PyTorch versions run on
-              the CPU copy of the same input (K2 over the words of each row
-              that it defines and K3 reads), plus adversarial cases: bit
-              pack with |v| <= 5770, 27-bit codewords and carries 1..7, and
-              at 64,801 and 1 groups; K5 with every width 0..32 at every
+              the CPU copy of the same input (K2 and K5 over the words of
+              each row that they define and K3 reads, K3 over the stream
+              words it defines, each launched into a poisoned output that
+              must stay poisoned past those words), plus adversarial cases:
+              bit pack with |v| <= 5770, 27-bit codewords and carries 1..7,
+              and at 64,801 and 1 groups; K5 with every width 0..32 at every
               phase, and pack_bits (K5 + K3) after carries 0..7 at n
-              1..70,001 and with a trailing zero-width group; exception
+              1..70,001 and with a trailing zero-width group at an unaligned
+              and an aligned phase; exception
               tables of groups holding more than 16 exceptions (overflow,
               then the 256-slot retry), and at 64,801 and 1 groups with
               slots 1/16/255/256 and dc_stride 0/512/64/96; median
@@ -184,6 +187,32 @@ def tensor_bytes(*tensors: torch.Tensor) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+POISON = 0x5A5A5A5A  # pre-fill of outputs whose undefined words must stay
+
+
+def stream_bytes(total_bits: int) -> int:
+    """Bytes of the stream words K3 defines, [0, ceil(total_bits / 32));
+    the words past them are unspecified."""
+    return 4 * -(-total_bits // 32)
+
+
+def check_splice(rows: torch.Tensor, sw: torch.Tensor, ge: torch.Tensor,
+                 nwords: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3 launched into a poisoned stream buffer against its plain version
+    on the CPU: the words it defines equal, every later word untouched.
+    Returns the defined bytes of both."""
+    out = torch.full((nwords,), POISON, dtype=torch.int32, device=rows.device)
+    kernels.launch("splice", rows.device, rows, sw, ge, out, rows.shape[0], rows.shape[1],
+                   nwords)
+    n = stream_bytes(int(ge[-1]))
+    want = splice.splice_plain(rows.cpu(), sw.cpu(), ge.cpu(), nwords)[:n]
+    got = out.cpu()
+    check(torch.equal(got.view(torch.uint8)[:n], want) and bool((got[n // 4:] == POISON).all()),
+          "K3 splice differs from its plain version over the stream words it defines, "
+          "or wrote past them")
+    return got.view(torch.uint8)[:n], want
+
+
 def add_row(rows: list, card: str, name: str, source: str, replaces: str,
             err: float, ms: float, plain_ms: float, nbytes: int,
             library_ms: float | None = None) -> None:
@@ -269,9 +298,7 @@ def phase_kernels(gop0: np.ndarray, ctx, card: str) -> list[dict]:
         check(torch.equal(k2.cpu()[defined], p2[defined]),
               "K2 group_pack_values differs from its plain version")
         bitpack.or_carry_lead(k2, code, bits)
-        k3 = splice.splice(k2, sw, ge, nwords)
-        p3 = splice.splice_plain(k2.cpu(), sw.cpu(), ge.cpu(), nwords)
-        check(torch.equal(k3.cpu(), p3), "K3 splice differs from its plain version")
+        k3, p3 = check_splice(k2, sw, ge, nwords)
         return gb, phase, k2, sw, ge, k3, p2, p3, defined, int(nw.sum())
 
     gb, phase, k2, sw, ge, k3, p2, p3, defined, content = pack_pair(v2, 0, 0)
@@ -284,12 +311,11 @@ def phase_kernels(gop0: np.ndarray, ctx, card: str) -> list[dict]:
         median_ms(lambda: group_pack.group_pack_values(v2, phase, w_words)),
         median_ms(lambda: group_pack.group_pack_values_plain(v2, phase, w_words)),
         tensor_bytes(v2, phase) + 4 * content)
-    stream_bytes = 4 * -(-int(ge[-1]) // 32)  # the stream words K3 writes
     row("splice", "dct3d_tpu_torch/csrc/splice.cu", "dct3d_tpu/ops/splice.py:129",
         max_abs_err(k3, p3),
         median_ms(lambda: splice.splice(k2, sw, ge, nwords)),
         median_ms(lambda: splice.splice_plain(k2, sw, ge, nwords)),
-        4 * content + tensor_bytes(sw, ge) + stream_bytes)
+        4 * content + tensor_bytes(sw, ge) + stream_bytes(int(ge[-1])))
 
     # Adversarial bit pack: every codeword up to the 27-bit bound, carries
     # 1..7 with random carry codes, over one GOP's shape; then group counts
@@ -303,8 +329,8 @@ def phase_kernels(gop0: np.ndarray, ctx, card: str) -> list[dict]:
         pack_pair(adv, int(rng.integers(0, 1 << bits)), bits)
     pack_pair(torch.cat([v2, adv[:1]]), 5, 3)
     pack_pair(adv[:1].clone(), 1, 1)
-    emit(phase="kernels", adversarial="group_bits+K2+K3 byte-equal, |v|<=5770, "
-         "carries 1..7; 64,801 and 1 groups")
+    emit(phase="kernels", adversarial="group_bits+K2+K3 byte-equal (K3 over the stream "
+         "words it defines, poisoned past them), |v|<=5770, carries 1..7; 64,801 and 1 groups")
 
     pixels = transform._dequant_matmul(
         v2.reshape(q.shape[0], -1, 2)[..., 0], v2.reshape(q.shape[0], -1, 2)[..., 1],
@@ -409,15 +435,26 @@ def phase_k5_kernels(gop: np.ndarray, ctx, card: str) -> list[dict]:
         return torch.cat([lead[:1], code]), torch.cat([lead[1:], width])
 
     def k5(code2, wid2, phase, w):
-        got = group_pack.group_pack_codes(code2, wid2, phase, w)
+        """K5 into a poisoned output: words [0, nw) of each row equal the
+        plain version's, the rest untouched.  Returns the error and the
+        count of defined words."""
+        out = torch.full((code2.shape[0], w), POISON, dtype=torch.int32, device=dev)
+        kernels.launch("group_pack_codes", dev, code2, wid2, phase, out, code2.shape[0], w)
         want = group_pack.group_pack_codes_plain(code2.cpu(), wid2.cpu(), phase.cpu(), w)
-        check(torch.equal(got.cpu(), want), "K5 group_pack_codes differs from its plain version")
-        return max_abs_err(got, want)
+        nw = ((phase.cpu().to(torch.int64) + wid2.cpu().sum(1, dtype=torch.int64) + 31)
+              >> 5).clamp(max=w)
+        defined = torch.arange(w)[None, :] < nw[:, None]
+        got = out.cpu()
+        check(torch.equal(got[defined], want[defined]) and bool((got[~defined] == POISON).all()),
+              "K5 group_pack_codes differs from its plain version over words [0, nw), "
+              "or wrote past them")
+        return max_abs_err(got[defined], want[defined]), int(nw.sum())
 
     def pack_bits(code, width):
         got = bitpack.pack_bits(code, width, max_width)
         want = bitpack.pack_bits(code.cpu(), width.cpu(), max_width)
-        check(torch.equal(got[0].cpu(), want[0]) and int(got[1]) == int(want[1])
+        n = stream_bytes(int(want[1]))
+        check(torch.equal(got[0].cpu()[:n], want[0][:n]) and int(got[1]) == int(want[1])
               and int(got[2]) == int(want[2]),
               f"pack_bits (K5 + K3) differs from its plain route at n {code.numel()}")
 
@@ -430,34 +467,40 @@ def phase_k5_kernels(gop: np.ndarray, ctx, card: str) -> list[dict]:
           "the portrait GOP's batch does not end in a partial group")
     emit(phase="kernels", k5_groups=code2.shape[0], w_words=w_words,
          last_group_codewords=n % 256, card=card)
-    err = k5(code2, wid2, phase, w_words)
+    err, content = k5(code2, wid2, phase, w_words)
     pack_bits(code, width)
     # Adversarial: random 32-bit codes with every width 0..32 at every
     # phase (kept rows and rows that drop bits past word 33); carries of
     # 0..7 bits before batches of n codewords; a whole trailing group of
-    # zero-width slots at a phase that is not word-aligned (K3 ORs one
-    # zero word for it).
+    # zero-width slots at a phase that is not word-aligned (K3 ORs its zero
+    # word 0 into the stream's last word) and at one that is (K3 reads
+    # nothing of it).
     g = 33 * 32
     wid = rng.integers(0, 33, (g, 256)).astype(np.int32)
     wid[:, :33] = (np.arange(33)[None, :] + np.arange(g)[:, None]) % 33
     raw = rng.integers(0, 1 << 32, (g, 256), dtype=np.uint64).astype(np.uint32).view(np.int32)
     args = [torch.from_numpy(a).to(dev) for a in (raw, wid, (np.arange(g) % 32).astype(np.int32))]
-    err = max(err, k5(*args, 258), k5(*args, 34))
+    err = max(err, k5(*args, 258)[0], k5(*args, 34)[0])
     for n in (1, 255, 256, 257, 70_001):
         for bits in range(8):
             pack_bits(*with_carry(n, bits))
-    code, width = with_carry(300, 5)
     pad = torch.zeros(300, dtype=torch.int64, device=dev)
-    check(int(width.sum()) % 32 != 0, "trailing zero group lands word-aligned")
-    pack_bits(torch.cat([code, pad]), torch.cat([width, pad]))
-    emit(phase="kernels", adversarial="K5 byte-equal on widths 0..32 at every phase; "
-         "pack_bits byte-equal at n 1/255/256/257/70001 after carries 0..7 and "
-         "with a trailing zero-width group", card=card)
+    for aligned in (False, True):  # the trailing zero group's phase
+        for n in range(300, 2300):
+            code, width = with_carry(n, 5)
+            if (int(width.sum()) % 32 == 0) == aligned:
+                break
+        check((int(width.sum()) % 32 == 0) == aligned, "no trailing zero group geometry")
+        pack_bits(torch.cat([code, pad]), torch.cat([width, pad]))
+    emit(phase="kernels", adversarial="K5 byte-equal over words [0, nw) on widths 0..32 at "
+         "every phase, poisoned past them; pack_bits byte-equal over the stream words at n "
+         "1/255/256/257/70001 after carries 0..7 and with a trailing zero-width group at an "
+         "unaligned and an aligned phase", card=card)
     add_row(rows, card, "group_pack_codes", "dct3d_tpu_torch/csrc/group_pack.cu",
             "dct3d_tpu/ops/group_pack.py:159", err,
             median_ms(lambda: group_pack.group_pack_codes(code2, wid2, phase, w_words)),
             median_ms(lambda: group_pack.group_pack_codes_plain(code2, wid2, phase, w_words)),
-            tensor_bytes(code2, wid2, phase) + 4 * code2.shape[0] * w_words)
+            tensor_bytes(code2, wid2, phase) + 4 * content)
     return rows
 
 

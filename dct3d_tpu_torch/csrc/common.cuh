@@ -25,7 +25,7 @@ constexpr int kCube = kEdge * kEdge * kEdge;
 // Codewords per level-1 bit-pack group (bitpack.pack_values' `group`).
 constexpr int kGroup = 256;
 
-// Warp-per-group kernels (K2, group_bits, K6): lane l holds values
+// Warp-per-group kernels (K2, group_bits, K5, K6): lane l holds values
 // [8l, 8l + 8) of its group, loaded as two 16-byte loads.
 constexpr int kPerLane = kGroup / 32;
 

@@ -14,32 +14,41 @@
 // pads of a batch that is not whole groups).  Word bits are MSB-first within
 // a uint32 value; the byte swap to stream byte order happens in K3's store.
 //
-// What bounds them on an H100 (3.35 TB/s), at one 1080p 8x8x8 GOP (64,800
-// groups, 16.6M values): bytes.  group_bits reads the 66.4 MB of values and
+// What bounds them on an H100 (3.35 TB/s): bytes.  At one 1080p 8x8x8 GOP
+// (64,800 groups, 16.6M values) group_bits reads the 66.4 MB of values and
 // writes 0.26 MB of counts: 20 us.  K2 reads the values again and writes
 // only the words that hold the group's bits, ~11 a group on the bench clip
 // (2.8 MB): ~21 us.  Writing every one of a row's w_words = 218 words
 // would add 54 MB (16 us) of zeros that K3 never reads, so K2 does not.
+// K5, at one padded-portrait 4x4x4 GOP (46,368 groups), reads 95 MB of
+// codes and widths and writes ~1.7 MB of content words: ~29 us; its whole
+// rows (w_words = 186) would add 33 MB, so it too writes words [0, nw) only.
 //
-// Design of group_bits and K2: one warp per group, eight groups per block.
-// Lane l loads values [8l, 8l + 8) with two 16-byte loads and computes
-// their codewords and widths in registers.  group_bits sums them with one
-// warp reduction.  K2 scans the lanes' bit counts with __shfl_up (the
-// in-group offsets), then each lane writes its <= 8 * 32 bits into the
-// warp's row in shared memory: words it covers whole with plain stores, its
-// first and last partial words with shared atomicOr (neighbouring lanes
-// share them).  Only __syncwarp orders the zeroing, the fragments and the
-// coalesced copy of words [0, nw) to the output; there is no block barrier.
+// Design: one warp per group, eight groups per block.  Lane l loads slots
+// [8l, 8l + 8) with 16-byte loads: group_bits and K2 the values, from which
+// they compute codewords and widths in registers, K5 the codes and widths.
+// group_bits sums the widths with one warp reduction.  K2 and K5 scan the
+// lanes' bit counts with __shfl_up (the in-group offsets), then each lane
+// writes its 8 fields into the warp's row in shared memory.  Only
+// __syncwarp orders the zeroing of words [0, nw), the fragments and the
+// coalesced copy of those words to the output; there is no block barrier.
 // The TPU kernel instead sums one masked select per output word (w_words
 // unrolled compare/select/reduce passes), because Mosaic has no scatter.
 //
-// K5: one 256-thread block per group, each thread's fragments added into a
-// shared row with atomicAdd after a two-level shuffle scan, every one of
-// the w_words words written.  Fragments are added, as the TPU kernel and the
-// einsum add them, so codes with bits above their width give the same
-// words; for real codewords the fragments are bit-disjoint and the sum is
-// their OR.  Widths are 0..32; a zero-width slot writes nothing (its shift
-// could reach 32, which is undefined; the JAX body masks it with `where`).
+// K2's lane runs its codewords through a 64-bit accumulator (acc << wid |
+// code), storing words it covers whole and ORing its first and last
+// partial words with shared atomicOr (neighbouring lanes share them).  That
+// OR is right only for well-formed codewords.  K5 keeps the TPU kernel's
+// sum semantics instead: each field is split into its fragment in word0
+// and its spill into word0 + 1, and fragments are added, as the TPU kernel
+// and the einsum add them, so codes with bits above their width give the
+// same words; for real codewords the fragments are bit-disjoint and the
+// sum is their OR.  A lane adds its fragments that land in one word in a
+// register and puts the sum into the row with one shared atomicAdd per word
+// it touches (about two per lane on typical content, against one or two
+// per codeword).  Widths are 0..32; a zero-width slot writes nothing (its
+// shift could reach 32, which is undefined; the JAX body masks it with
+// `where`).
 //
 // In all three, bits landing past word w_words-1 are dropped, as in the TPU
 // kernel.
@@ -49,8 +58,7 @@
 namespace dct3d {
 namespace {
 
-constexpr int kWarps = kGroup / 32;
-constexpr int kGroupsPerBlock = 8;  // group_bits, K2: one warp per group
+constexpr int kGroupsPerBlock = 8;  // one warp per group
 constexpr int kWarpThreads = 32 * kGroupsPerBlock;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -137,49 +145,78 @@ group_pack_values_kernel(const int32_t* __restrict__ values,
   for (int j = lane; j < nw; j += 32) dst[j] = row[j];
 }
 
-// One thread's codeword into the group's shared row; every thread of the
-// block calls it once.  `row` must hold w_words zeroed words before the
-// call's __syncthreads and is complete after its second one.
-__device__ __forceinline__ void pack_row(uint32_t code, int width, int phase,
-                                         uint32_t* row, int w_words) {
-  __shared__ int warp_total[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = width;  // inclusive scan of the widths within the warp
+// A lane's running sum for one row word: fragments of consecutive
+// codewords that land in the same word are added in a register, and the
+// sum goes into the shared row with one atomicAdd when the lane moves on
+// (neighbouring lanes may share the word).  Words past w_words are dropped.
+struct WordSum {
+  int word = -1;
+  uint32_t sum = 0;
+  __device__ __forceinline__ void add(int w, uint32_t v, uint32_t* row,
+                                      int w_words) {
+    if (w != word) {
+      flush(row, w_words);
+      word = w;
+      sum = 0;
+    }
+    sum += v;
+  }
+  __device__ __forceinline__ void flush(uint32_t* row, int w_words) const {
+    if (word >= 0 && word < w_words) atomicAdd(&row[word], sum);
+  }
+};
+
+__global__ void __launch_bounds__(kWarpThreads)
+group_pack_codes_kernel(const int32_t* __restrict__ code,
+                        const int32_t* __restrict__ width,
+                        const int32_t* __restrict__ phase,
+                        uint32_t* __restrict__ out, int groups, int w_words) {
+  extern __shared__ uint32_t rows[];  // kGroupsPerBlock rows of w_words
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t g = (int64_t)blockIdx.x * kGroupsPerBlock + warp;
+  if (g >= groups) return;  // whole warps leave together
+  uint32_t* row = rows + warp * w_words;
+
+  int32_t c[kPerLane], wid[kPerLane];
+  load8(code + g * kGroup + lane * kPerLane, c);
+  load8(width + g * kGroup + lane * kPerLane, wid);
+  int bits = 0;
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) bits += wid[i];
+  int incl = bits;  // inclusive scan of the lanes' bit counts
+#pragma unroll
   for (int s = 1; s < 32; s <<= 1) {
     const int y = __shfl_up_sync(kFull, incl, s);
     if (lane >= s) incl += y;
   }
-  if (lane == 31) warp_total[warp] = incl;
-  __syncthreads();  // also orders the row zeroing before the atomics
-  int off = phase + incl - width;
-  for (int w = 0; w < warp; ++w) off += warp_total[w];
+  const int p0 = phase[g];
+  const int end = p0 + __shfl_sync(kFull, incl, 31);  // row bit after the group
+  const int nw = min((end + 31) >> 5, w_words);       // words K3 reads
+  for (int j = lane; j < nw; j += 32) row[j] = 0;
+  __syncwarp();
 
-  const int word0 = off >> 5;
-  const int over = (off & 31) + width - 32;  // bits spilling into word0 + 1
-  if (width == 0) {
-    // nothing to write
-  } else if (over > 0) {
-    // 1 <= over <= 31 here, so neither shift reaches 32.
-    if (word0 < w_words) atomicAdd(&row[word0], code >> over);
-    if (word0 + 1 < w_words) atomicAdd(&row[word0 + 1], code << (32 - over));
-  } else if (word0 < w_words) {
-    atomicAdd(&row[word0], code << -over);  // 0 <= -over <= 31
+  int off = p0 + incl - bits;
+  WordSum acc;
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) {
+    const uint32_t v = (uint32_t)c[i];
+    const int word0 = off >> 5;
+    const int over = (off & 31) + wid[i] - 32;  // bits spilling into word0 + 1
+    if (wid[i] == 0) {
+      // nothing to write
+    } else if (over > 0) {
+      // 1 <= over <= 31 here, so neither shift reaches 32.
+      acc.add(word0, v >> over, row, w_words);
+      acc.add(word0 + 1, v << (32 - over), row, w_words);
+    } else {
+      acc.add(word0, v << -over, row, w_words);  // 0 <= -over <= 31
+    }
+    off += wid[i];
   }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kGroup)
-group_pack_codes_kernel(const uint32_t* __restrict__ code,
-                        const int32_t* __restrict__ width,
-                        const int32_t* __restrict__ phase,
-                        uint32_t* __restrict__ out, int w_words) {
-  extern __shared__ uint32_t row[];
-  const int64_t g = blockIdx.x;
-  const int t = threadIdx.x;
-  for (int j = t; j < w_words; j += kGroup) row[j] = 0;
-  pack_row(code[g * kGroup + t], width[g * kGroup + t], phase[g], row,
-           w_words);
-  for (int j = t; j < w_words; j += kGroup) out[g * w_words + j] = row[j];
+  acc.flush(row, w_words);
+  __syncwarp();
+  uint32_t* dst = out + g * w_words;
+  for (int j = lane; j < nw; j += 32) dst[j] = row[j];
 }
 
 unsigned warp_blocks(int groups) {
@@ -217,16 +254,20 @@ DCT3D_EXPORT int dct3d_group_pack_values(const void* values, const void* phase,
   return (int)cudaGetLastError();
 }
 
-// code: (groups, 256) u32; width: (groups, 256) i32 in [0, 32]; phase:
-// (groups,) i32 in [0, 32); out: (groups, w_words) u32 (every word written).
+// code: (groups, 256) u32 and width: (groups, 256) i32 in [0, 32], both
+// 16-byte aligned; phase: (groups,) i32 in [0, 32); out: (groups, w_words)
+// u32.  Words [0, nw) of each row are written, nw = ceil((phase + bits) /
+// 32) capped at w_words, bits the sum of the row's widths (exactly the
+// words K3 reads); the rest are left as they were.
 DCT3D_EXPORT int dct3d_group_pack_codes(const void* code, const void* width,
                                         const void* phase, void* out,
                                         int groups, int w_words,
                                         void* stream) {
   using namespace dct3d;
-  group_pack_codes_kernel<<<groups, kGroup, w_words * sizeof(uint32_t),
+  group_pack_codes_kernel<<<warp_blocks(groups), kWarpThreads,
+                            kGroupsPerBlock * w_words * sizeof(uint32_t),
                             (cudaStream_t)stream>>>(
-      (const uint32_t*)code, (const int32_t*)width, (const int32_t*)phase,
-      (uint32_t*)out, w_words);
+      (const int32_t*)code, (const int32_t*)width, (const int32_t*)phase,
+      (uint32_t*)out, groups, w_words);
   return (int)cudaGetLastError();
 }

@@ -7,10 +7,11 @@ a batch of whole 256-value groups in five steps:
      and start bit (one cumsum over the groups, plain torch as it is plain
      XLA in the JAX package), its start word and its bit phase within that
      word;
-  2. level 1, K2 (ops/group_pack.py): each group packed at its phase, the
-     words that hold its bits defined;
+  2. level 1, K2 (ops/group_pack.py): each group packed at its phase, only
+     the words that hold its bits defined;
   3. the carry — the previous batch's partial byte — ORed into word 0;
-  4. level 2, K3 (ops/splice.py): groups placed at their start words;
+  4. level 2, K3 (ops/splice.py): groups placed at their start words, each
+     stream word through the last bit written once (no zero fill);
   5. the tail byte (the byte holding the last bit, the next batch's carry
      source) read from the finished buffer, on the device.
 
@@ -90,8 +91,13 @@ def _finish(buf_groups, gstart, gend, n: int, max_width: int):
     """Level 2 (K3) and the tail byte: (buf, total_bits, tail_byte, False).
 
     Only words [0, nw) of each row of buf_groups are read, nw the words
-    through the one holding the group's bit gend - 1: K2 defines no others
-    on the card (the plain version zeroes them).
+    through the one holding the group's bit gend - 1: K2 and K5 define no
+    others on the card (the plain versions zero them).  The stream buffer's
+    words [0, ceil(total_bits / 32)) are each written once, bits past
+    total_bits zero; words past the total bit length are unspecified (the
+    caller slices to the true byte count), and nothing zeroes them.  The
+    tail byte is the byte holding bit total_bits - 1, inside those words
+    (with total_bits 0 there is none, and it is unspecified).
     """
     buf = splice.splice(buf_groups, (gstart >> 5).to(torch.int32),
                         gend.to(torch.int32), stream_words(n, max_width))
@@ -112,9 +118,12 @@ def pack_values(values: torch.Tensor, carry_code: torch.Tensor,
     starts mid-row may not), or ValueError is raised.
 
     Returns (buf, total_bits, tail_byte, overflow) like the JAX function:
-    buf the (4 * nwords,) uint8 MSB-first stream, zero past total_bits;
-    total_bits and tail_byte 0-d int64 tensors on the device (tail_byte is
-    the byte holding bit total_bits - 1); overflow always False.
+    buf the (4 * nwords,) uint8 MSB-first stream, its words [0,
+    ceil(total_bits / 32)) defined with the bits past total_bits zero, and
+    words past the total bit length unspecified (the caller slices to the
+    true byte count; the plain route on the CPU zeroes them); total_bits
+    and tail_byte 0-d int64 tensors on the device (tail_byte is the byte
+    holding bit total_bits - 1); overflow always False.
     """
     n, group = values.numel(), group_pack.GROUP
     if not n or n % group:
@@ -138,8 +147,11 @@ def pack_bits(code: torch.Tensor, width: torch.Tensor, max_width: int = 32):
     (the carry pseudo-codeword) or trail, as in the JAX function: K3 relies
     on every group but the last spanning whole words.
 
-    Returns (buf, total_bits, tail_byte, overflow) like pack_values; for
-    n == 0, a zero buffer and zeros, as the JAX function returns.
+    Returns (buf, total_bits, tail_byte, overflow) like pack_values (the
+    stream's words [0, ceil(total_bits / 32)) defined, words past the
+    total bit length unspecified); for n == 0, a zero buffer and zeros, as
+    the JAX function returns.  On the card the codes and widths go to K5
+    as fresh grouped tensors, so they need no alignment of their own.
     """
     n, group = width.numel(), group_pack.GROUP
     _check_batch(n, max_width)

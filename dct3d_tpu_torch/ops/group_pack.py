@@ -8,8 +8,9 @@ bit count, the input of the group geometry's cumsum.  K2 replaces
 int32 coefficients, each codeword is written MSB-first at its in-group bit
 offset (a prefix sum of the widths) plus the group's global bit phase, into
 a row of ``w_words`` 32-bit words.  K5 replaces ``group_pack_pallas``: the
-same pack from precomputed codes and widths (``bitpack.pack_bits``), into a
-zero-filled row.
+same pack from precomputed codes and widths (``bitpack.pack_bits``).  On
+the card both define only the row words that hold the group's bits, the
+words K3 reads.
 
 Words travel as int32 tensors holding the uint32 bit patterns (torch on
 the CPU has no uint32 shifts).  CPU tensors take the plain versions, the
@@ -63,7 +64,8 @@ def group_pack_values_plain(values: torch.Tensor, phase: torch.Tensor,
 
 def group_pack_codes_plain(code: torch.Tensor, width: torch.Tensor,
                            phase: torch.Tensor, w_words: int) -> torch.Tensor:
-    """Plain PyTorch version of K5 (same contract as group_pack_codes)."""
+    """Plain PyTorch version of K5 (same contract as group_pack_codes,
+    with every word past a group's content zero)."""
     return _pack_plain(code.to(torch.int64) & _MASK32, width.to(torch.int64),
                        phase, w_words)
 
@@ -122,15 +124,24 @@ def group_pack_codes(code: torch.Tensor, width: torch.Tensor,
     """K5: (g, 256) int32 codes (uint32 bit patterns, the field's payload
     right-aligned) + (g, 256) int32 widths in [0, 32] + (g,) int32 bit
     phases in [0, 32) -> (g, w_words) int32 words, MSB-first, each group
-    packed at its phase, every word written.
+    packed at its phase; fragments are added per word with 32-bit wrap, as
+    the TPU kernel adds them.
 
-    Zero-width slots write nothing; bits past word w_words-1 are dropped.
+    Words [0, nw) of each row are defined, nw = ceil((phase + bits) / 32)
+    capped at w_words with bits the sum of the row's widths: exactly the
+    words K3 reads.  The kernel leaves the rest unwritten; the plain
+    version zeroes them.  Zero-width slots write nothing; bits past word
+    w_words-1 are dropped.  On the card code and width must start on a
+    16-byte boundary (the kernel reads them with 16-byte loads), or
+    ValueError is raised.
     """
     _check_groups("group_pack_codes", code, width)
     _check_phase("group_pack_codes", phase, code.shape[0])
     if code.device.type == "cpu":
         return group_pack_codes_plain(code, width, phase, w_words)
     kernels.check_cuda("group_pack_codes", code, width, phase)
+    kernels.check_aligned16("group_pack_codes", code)
+    kernels.check_aligned16("group_pack_codes", width)
     out = torch.empty((code.shape[0], w_words), dtype=torch.int32,
                       device=code.device)
     kernels.launch("group_pack_codes", code.device, code, width, phase, out,

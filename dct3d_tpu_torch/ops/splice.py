@@ -20,7 +20,8 @@ from .. import kernels
 
 def splice_plain(groups_buf: torch.Tensor, sw: torch.Tensor,
                  gend: torch.Tensor, nwords: int) -> torch.Tensor:
-    """Plain PyTorch version of K3 (same contract as splice)."""
+    """Plain PyTorch version of K3 (same contract as splice, with every
+    word past the stream zero)."""
     g, w = groups_buf.shape
     j = torch.arange(w, device=groups_buf.device)
     dst = sw.to(torch.int64)[:, None] + j
@@ -36,10 +37,18 @@ def splice_plain(groups_buf: torch.Tensor, sw: torch.Tensor,
 
 def splice(groups_buf: torch.Tensor, sw: torch.Tensor, gend: torch.Tensor,
            nwords: int) -> torch.Tensor:
-    """K3: (g, W) int32 group words (K2's output, carry lead included),
-    (g,) int32 start words ``sw`` and (g,) int32 end bits ``gend``
-    (exclusive) -> (4 * nwords,) uint8 stream bytes, zero past the stream.
+    """K3: (g, W) int32 group words (K2's or K5's output, carry lead
+    included), (g,) int32 start words ``sw`` and (g,) int32 end bits
+    ``gend`` (exclusive; the groups tile the stream, group g + 1 starting
+    at bit gend[g]) -> (4 * nwords,) uint8 stream bytes.
+
     Only each row's words through the one holding bit gend - 1 are read.
+    Stream words [0, ceil(total_bits / 32)) are each written once,
+    total_bits = gend[-1]; the bits past total_bits in the last of them
+    are zero, as they are in the rows.  Words past the total bit length
+    are unspecified (the caller slices to the true byte count), as in the
+    JAX kernel: the kernel allocates with torch.empty and leaves them
+    unwritten; the plain version zeroes them.
     """
     if groups_buf.dtype != torch.int32 or groups_buf.dim() != 2 or not groups_buf.shape[0]:
         raise ValueError("splice takes (g>0, W) int32 group words")
@@ -50,7 +59,7 @@ def splice(groups_buf: torch.Tensor, sw: torch.Tensor, gend: torch.Tensor,
     if groups_buf.device.type == "cpu":
         return splice_plain(groups_buf, sw, gend, nwords)
     kernels.check_cuda("splice", groups_buf, sw, gend)
-    words = torch.zeros((nwords,), dtype=torch.int32, device=groups_buf.device)
+    words = torch.empty((nwords,), dtype=torch.int32, device=groups_buf.device)
     kernels.launch("splice", groups_buf.device, groups_buf, sw, gend, words,
                    g, groups_buf.shape[1], nwords)
     return words.view(torch.uint8)

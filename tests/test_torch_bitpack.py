@@ -196,19 +196,12 @@ def _jax_pack_bits(impl: str, out_bytes: int):
     return jax.jit(lambda c, w: j_bitpack.pack_bits(c, w, out_bytes, impl=impl))
 
 
-@pytest.mark.parametrize("n", [1, 2, 63, 64, 65, 257, 4099, 70_001])
-def test_pack_bits_matches_jax_and_numpy(n):
-    """pack_bits with a carry pseudo-codeword of 0..7 bits against JAX
-    pack_bits (XLA level 2 and the Pallas splice in interpret mode) and
-    pack_bits_np: bytes through the last partial byte, total bits, tail
-    byte, zeros past the stream."""
-    rng = np.random.default_rng(n)
-    vals = rng.integers(-5771, 5772, n).astype(np.int32)
-    code, width = j_expgolomb.codewords_np(vals)
-    carry_bits = n % 8
-    carry_code = int(rng.integers(0, 1 << carry_bits)) if carry_bits else 0
-    code = np.concatenate([[np.uint32(carry_code)], code])
-    width = np.concatenate([[np.int32(carry_bits)], width.astype(np.int32)])
+def _check_pack_bits(code: np.ndarray, width: np.ndarray, out_bytes=None) -> int:
+    """The port's pack_bits (plain route) against JAX pack_bits (XLA level
+    2 and the Pallas splice in interpret mode, into out_bytes, by default
+    the stream's bytes + 8) and pack_bits_np: bytes through the last
+    partial byte, total bits, tail byte; the plain route zeroes past the
+    stream.  Returns total_bits."""
     buf, total, tail, overflow = bitpack.pack_bits(
         torch.from_numpy(code.astype(np.int64)), torch.from_numpy(width), 32)
     total, tail = int(total), int(tail)
@@ -217,11 +210,98 @@ def test_pack_bits_matches_jax_and_numpy(n):
     ref, ref_bits = j_bitpack.pack_bits_np(code, width)
     assert total == ref_bits and tail == int(ref[-1])
     assert buf.numpy()[:nbytes].tobytes() == ref.tobytes()
-    out_bytes = nbytes + 8
     for impl in ("xla", "pallas_interpret"):
-        jbuf, jtotal, jtail, jovf = _jax_pack_bits(impl, out_bytes)(code, width)
+        jbuf, jtotal, jtail, jovf = _jax_pack_bits(impl, out_bytes or nbytes + 8)(code, width)
         assert (int(jtotal), int(jtail), bool(jovf)) == (total, tail, False)
         np.testing.assert_array_equal(np.asarray(jbuf)[:nbytes], ref)
+    return total
+
+
+def _with_carry(vals: np.ndarray, carry_bits: int, carry_code: int):
+    code, width = j_expgolomb.codewords_np(vals.astype(np.int32))
+    return (np.concatenate([[np.uint32(carry_code)], code]),
+            np.concatenate([[np.int32(carry_bits)], width.astype(np.int32)]))
+
+
+@pytest.mark.parametrize("n", [1, 2, 63, 64, 65, 257, 4099, 70_001])
+def test_pack_bits_matches_jax_and_numpy(n):
+    """pack_bits with a carry pseudo-codeword of 0..7 bits against JAX
+    pack_bits (XLA level 2 and the Pallas splice in interpret mode) and
+    pack_bits_np: bytes through the last partial byte, total bits, tail
+    byte, zeros past the stream."""
+    rng = np.random.default_rng(n)
+    vals = rng.integers(-5771, 5772, n).astype(np.int32)
+    carry_bits = n % 8
+    carry_code = int(rng.integers(0, 1 << carry_bits)) if carry_bits else 0
+    _check_pack_bits(*_with_carry(vals, carry_bits, carry_code))
+
+
+def _edge_batch(case: str):
+    """(code, width) of pack_bits at the level-2 edge geometries: a whole
+    trailing group of zero-width slots after codewords that end at an
+    unaligned or a word-aligned bit; one codeword after a carry of 0..7
+    bits; a total bit count that is a multiple of 32."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case.startswith("n1_carry"):
+        bits = int(case[-1])
+        return _with_carry(rng.integers(-300, 301, 1), bits, int(rng.integers(0, 1 << bits)))
+    while True:
+        vals = rng.integers(-40, 41, 302 if case.startswith("zero_tail") else 1000)
+        code, width = _with_carry(vals, 0, 0)
+        if (int(width.sum()) % 32 == 0) == (case != "zero_tail_unaligned"):
+            break
+    if case.startswith("zero_tail"):
+        pad = np.zeros(300, np.int32)  # slots 603..  fill group 2 whole
+        return np.concatenate([code, pad.view(np.uint32)]), np.concatenate([width, pad])
+    return code, width
+
+
+EDGE_CASES = (["zero_tail_unaligned", "zero_tail_aligned", "total_multiple_of_32"]
+              + [f"n1_carry{b}" for b in range(8)])
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_pack_bits_edge_geometries_match_jax(case):
+    """The edge geometries of level 2 (K3's owner-writes splice leans on
+    them): pack_bits against JAX pack_bits (XLA and the Pallas splice in
+    interpret mode) and pack_bits_np over the stream bytes."""
+    code, width = _edge_batch(case)
+    total = _check_pack_bits(code, width, out_bytes=64 if case.startswith("n1") else None)
+    if case.startswith("zero_tail"):
+        assert code.size > 512 and not width[512:].any()  # group 2 holds no bits
+        assert (total % 32 == 0) == (case == "zero_tail_aligned")
+    elif case == "total_multiple_of_32":
+        assert total % 32 == 0
+
+
+@pytest.mark.parametrize("carry_bits", [0, 2, 4, 6])
+def test_pack_values_total_multiple_of_32_matches_jax(carry_bits):
+    """pack_values at a total bit count (carry included) that is a
+    multiple of 32, so the stream ends at a word boundary: against JAX
+    pack_values and pack_bits with the Pallas splice (interpret mode), over
+    the stream bytes, total_bits and tail_byte."""
+    vals = _values(7, seed=carry_bits)
+    _, width = j_expgolomb.codewords_np(vals)
+    # Turning a 0 into a 1 adds 2 bits; widths are odd, so the sum is even.
+    zeros = np.flatnonzero(vals == 0)
+    need = ((-carry_bits - int(width.astype(np.int64).sum())) % 32) // 2
+    assert zeros.size >= need
+    vals[zeros[:need]] = 1
+    carry_code = (0x5A >> (8 - carry_bits)) if carry_bits else 0
+    buf, total, tail, _ = bitpack.pack_values(
+        torch.from_numpy(vals), torch.tensor(carry_code), torch.tensor(carry_bits),
+        max_width=MAX_WIDTH)
+    total, tail = int(total), int(tail)
+    assert total % 32 == 0
+    nbytes = total // 8
+    pack_values_j, pack_bits_j = _jax_packers()
+    jbuf, jtotal, jtail, _ = pack_values_j(
+        jnp.asarray(vals), jnp.uint32(carry_code), jnp.int32(carry_bits))
+    assert (total, tail) == (int(jtotal), int(jtail))
+    np.testing.assert_array_equal(buf.numpy()[:nbytes], np.asarray(jbuf)[:nbytes])
+    pbuf, ptotal, ptail, _ = pack_bits_j(*_with_carry(vals, carry_bits, carry_code))
+    assert (total, tail) == (int(ptotal), int(ptail))
+    np.testing.assert_array_equal(buf.numpy()[:nbytes], np.asarray(pbuf)[:nbytes])
 
 
 @pytest.mark.parametrize("carry_bits", [0, 3, 7])

@@ -56,6 +56,12 @@ def test_relayout_kernels_equal_plain(dev, shape):
     assert torch.equal(got.cpu(), relayout.cubes_to_frames_plain(pixels, h, w))
 
 
+def _stream_bytes(total_bits: int) -> int:
+    """Bytes of the stream words K3 defines: words [0, ceil(total_bits /
+    32)); the words past them are unspecified."""
+    return 4 * -(-total_bits // 32)
+
+
 def _defined(phase, bits, w_words):
     """(g, w_words) mask of the words K2 defines and K3 reads: those that
     hold the group's bits, up to w_words."""
@@ -82,7 +88,9 @@ def test_bitpack_kernels_equal_plain(dev, carry_bits):
     sw, ge = (gstart >> 5).to(torch.int32), gend.to(torch.int32)
     nwords = bitpack.stream_words(v2.numel(), 27)
     k3 = splice.splice(k2, sw, ge, nwords)
-    assert torch.equal(k3.cpu(), splice.splice_plain(k2.cpu(), sw.cpu(), ge.cpu(), nwords))
+    want = splice.splice_plain(k2.cpu(), sw.cpu(), ge.cpu(), nwords)
+    n = _stream_bytes(int(ge[-1]))  # the stream words K3 defines
+    assert torch.equal(k3.cpu()[:n], want[:n])
 
 
 @pytest.mark.parametrize("groups", [1, 7, 9, 801])
@@ -113,17 +121,107 @@ def test_group_pack_values_kernel_contract(dev, groups, w_words):
 
 @pytest.mark.parametrize("groups,w_words", [(1, 8), (3, 258), (300, 34), (257, 186)])
 def test_group_pack_codes_kernel_equals_plain(dev, groups, w_words):
-    """K5 on random 32-bit codes (bits above the width included: both
-    versions add the fragments), widths 0..32 at every phase, and narrow
-    rows that drop bits past w_words - 1."""
+    """K5's output contract on random 32-bit codes (bits above the width
+    included: both versions add the fragments), widths 0..32 at every
+    phase, and narrow rows that drop bits past w_words - 1: the words that
+    hold a group's bits equal the plain version's, and the kernel leaves
+    every later word of the row as it found it."""
     rng = np.random.default_rng(groups)
     wid = rng.integers(0, 33, (groups, 256)).astype(np.int32)
     wid[0, :33] = np.arange(33)
     code = rng.integers(0, 1 << 32, (groups, 256), dtype=np.uint64).astype(np.uint32)
     phase = (np.arange(groups) % 32).astype(np.int32)
     args = [torch.from_numpy(a) for a in (code.view(np.int32), wid, phase)]
-    got = group_pack.group_pack_codes(*(a.to(dev) for a in args), w_words)
-    assert torch.equal(got.cpu(), group_pack.group_pack_codes_plain(*args, w_words))
+    out = torch.full((groups, w_words), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+    kernels.launch("group_pack_codes", dev, *(a.to(dev) for a in args), out, groups, w_words)
+    torch.cuda.synchronize()
+    defined = _defined(args[2], args[1].to(torch.int64).sum(1), w_words)
+    want = group_pack.group_pack_codes_plain(*args, w_words)
+    assert torch.equal(out.cpu()[defined], want[defined])
+    assert (out.cpu()[~defined] == 0x5A5A5A5A).all()
+
+
+def _zero_tail(rng, aligned: bool):
+    """Codewords whose bits end word-aligned or not, then a whole group of
+    zero-width slots (the last group holds no bits)."""
+    while True:
+        code, width = expgolomb.codewords(torch.from_numpy(
+            rng.integers(-40, 41, 302).astype(np.int32)))
+        if (int(width.sum()) % 32 == 0) == aligned:
+            pad = torch.zeros(300, dtype=torch.int64)
+            return torch.cat([code, pad]), torch.cat([width, pad])
+
+
+def _aligned_total(rng, n: int):
+    """n codewords whose bits total a multiple of 32."""
+    while True:
+        code, width = expgolomb.codewords(torch.from_numpy(
+            rng.integers(-40, 41, n).astype(np.int32)))
+        if int(width.sum()) % 32 == 0:
+            return code, width
+
+
+def _splice_batches(case: str, rng) -> list:
+    """(code, width) batches of pack_bits for the K3 contract cases."""
+    def with_carry(n, bits):
+        code, width = expgolomb.codewords(torch.from_numpy(
+            rng.integers(-2040, 2041, n).astype(np.int32)))
+        return (torch.cat([torch.tensor([int(rng.integers(0, 1 << bits))]), code]),
+                torch.cat([torch.tensor([bits]), width]))
+    return {
+        "zero_tail_unaligned": lambda: [_zero_tail(rng, False)],
+        "zero_tail_aligned": lambda: [_zero_tail(rng, True)],
+        "one_group": lambda: [with_carry(200, 5)],
+        "last_group_one_codeword": lambda: [with_carry(256 * 3, 3)],
+        "n1_after_carries_0_7": lambda: [with_carry(1, bits) for bits in range(8)],
+        "total_multiple_of_32": lambda: [_aligned_total(rng, 1000)],
+    }[case]()
+
+
+@pytest.mark.parametrize("case", [
+    "zero_tail_unaligned", "zero_tail_aligned", "one_group", "last_group_one_codeword",
+    "n1_after_carries_0_7", "total_multiple_of_32", "groups_64801"])
+def test_splice_kernel_contract(dev, case):
+    """K3's output contract, launched into a stream buffer pre-filled with
+    0x5A5A5A5A: words [0, ceil(total_bits / 32)) equal the plain
+    version's, every later word stays as it was.  Group rows come from the
+    plain K5 (pack_bits' level 1) or, at 64,801 groups, from K2 on the
+    card, poisoned past the words each row defines."""
+    rng = np.random.default_rng(len(case))
+    if case == "groups_64801":
+        vals = rng.integers(-3, 4, (64_801, 256)).astype(np.int32)
+        v2 = torch.from_numpy(vals).to(dev)
+        gstart, gend = bitpack.geometry(v2, torch.tensor(3, device=dev))
+        rows = torch.full((64_801, 218), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+        kernels.launch("group_pack_values", dev, v2, (gstart & 31).to(torch.int32), rows,
+                       64_801, 218)
+        batches = [(rows, gstart, gend, bitpack.stream_words(vals.size, 27))]
+    else:
+        batches = []
+        for code, width in _splice_batches(case, rng):
+            code2, wid2 = expgolomb.grouped(code, width)
+            gbits = wid2.sum(1, dtype=torch.int64)
+            gstart = torch.cumsum(gbits, 0) - gbits
+            phase = (gstart & 31).to(torch.int32)
+            rows = group_pack.group_pack_codes_plain(code2, wid2, phase, 258)
+            rows[~_defined(phase, gbits, 258)] = 0x5A5A5A5A
+            batches.append((rows.to(dev), gstart, gstart + gbits,
+                            bitpack.stream_words(code.numel(), 32)))
+    for rows, gstart, gend, nwords in batches:
+        sw, ge = (gstart >> 5).to(torch.int32).to(dev), gend.to(torch.int32).to(dev)
+        out = torch.full((nwords,), 0x5A5A5A5A, dtype=torch.int32, device=dev)
+        kernels.launch("splice", dev, rows, sw, ge, out, rows.shape[0], rows.shape[1], nwords)
+        torch.cuda.synchronize()
+        n = _stream_bytes(int(ge[-1]))
+        want = splice.splice_plain(rows.cpu(), sw.cpu(), ge.cpu(), nwords)
+        got = out.cpu().view(torch.uint8)
+        assert torch.equal(got[:n], want[:n])
+        assert (out.cpu()[n // 4:] == 0x5A5A5A5A).all()
+        if case.startswith("zero_tail"):  # the geometry the case names
+            assert int(ge[-1]) == int(gstart[-1]) and rows.shape[0] == 3
+            assert (int(ge[-1]) % 32 == 0) == (case == "zero_tail_aligned")
+        elif case == "total_multiple_of_32":
+            assert int(ge[-1]) % 32 == 0
 
 
 @pytest.mark.parametrize("n", [1, 255, 256, 257, 70_001])
@@ -138,7 +236,8 @@ def test_pack_bits_kernels_equal_plain(dev, n):
         width = torch.cat([torch.tensor([bits]), width])
         want = bitpack.pack_bits(code, width, 23)
         got = bitpack.pack_bits(code.to(dev), width.to(dev), 23)
-        assert torch.equal(got[0].cpu(), want[0])
+        n = _stream_bytes(int(want[1]))  # the stream words K3 defines
+        assert torch.equal(got[0].cpu()[:n], want[0][:n])
         assert int(got[1]) == int(want[1]) and int(got[2]) == int(want[2])
 
 
@@ -223,9 +322,10 @@ def test_compact_groups_kernel_equals_plain(dev, groups, slots, dc_stride):
 
 
 @pytest.mark.parametrize("entry", [
-    "pack_values", "geometry", "group_pack_values", "compact_exceptions", "compact_groups"])
+    "pack_values", "geometry", "group_pack_values", "compact_exceptions", "compact_groups",
+    "group_pack_codes"])
 def test_misaligned_view_raises(dev, entry):
-    """group_bits, K2 and K6 read their values with 16-byte loads: a
+    """group_bits, K2, K5 and K6 read their inputs with 16-byte loads: a
     contiguous view that starts 4 bytes into its storage raises ValueError
     at each entry point that reaches them, and launches nothing."""
     from dct3d_tpu_torch.ops import exceptions
@@ -240,6 +340,9 @@ def test_misaligned_view_raises(dev, entry):
             v2, torch.zeros(2, dtype=torch.int32, device=dev), 218),
         "compact_exceptions": lambda: exceptions.compact_exceptions(flat, 16, 512),
         "compact_groups": lambda: exc_pack.compact_groups(v2, 16, 512),
+        "group_pack_codes": lambda: group_pack.group_pack_codes(
+            v2, torch.zeros((2, 256), dtype=torch.int32, device=dev),
+            torch.zeros(2, dtype=torch.int32, device=dev), 258),
     }
     kernels.LAUNCHES.clear()
     with pytest.raises(ValueError, match="16-byte"):

@@ -19,8 +19,11 @@ and the turbo encode steps; the 4x4x4 reference encode step of a 4-frame GOP
 of the same clip; each other kernel of the port alone at its main path's
 shapes (K1, K3, K4, K7, K8 at the 8x8x8 GOP, K5 at one padded-portrait
 4x4x4 GOP), and t().contiguous() of the turbo plane and wire, the one
-library call that computes K7's and K8's function.  Encode device fps are
-chip_smoke.py's to measure, not this tool's.
+library call that computes K7's and K8's function; then, at the padded
+portrait GOP, the whole pack_bits route (codes and widths in) and the
+whole encode step, which put the plain-torch glue around K5 by name; and
+K3 on one group, the launch-latency floor of the splice_8 stage.  Encode
+device fps are chip_smoke.py's to measure, not this tool's.
 
 It calls only functions that the port has had since its 4x4x4 slice, so a
 checkout of an earlier commit can run a copy of this file (put it in that
@@ -126,7 +129,7 @@ def main() -> None:
     clip = smoke.synthetic_clip(smoke.T, smoke.H, smoke.W)
     ctx = port.TransformContext(port.CodecConfig(), dev)
     ctx4 = port.TransformContext(port.CodecConfig(**smoke.BLOCK_CFG), dev)
-    frames =torch.from_numpy(clip[:8]).to(dev)
+    frames = torch.from_numpy(clip[:8]).to(dev)
     cubes, sums = relayout.frames_to_cubes(frames)
     v2 = transform._quantize(cubes, sums, ctx.enc_t, ctx.cfg).reshape(-1, group_pack.GROUP)
     w_words = bitpack.worst_case_w_words(group_pack.GROUP, bitpack.max_codeword_bits(512))
@@ -186,6 +189,19 @@ def main() -> None:
                                      bitpack.max_codeword_bits(ctx4.cfg.cube_size))
     stage("group_pack_codes_4", lambda: group_pack.group_pack_codes(code2, wid2, phase4, ww4),
           groups=code2.shape[0], w_words=ww4)
+    # The rest of the portrait route around K5: the whole pack_bits (codes
+    # and widths in: grouping, geometry, K5, K3, tail byte) and the whole
+    # encode step (quantize, int64 codewords, the carry's two cats,
+    # pack_bits).
+    mw4 = bitpack.max_codeword_bits(ctx4.cfg.cube_size)
+    code4, width4 = torch.cat([lead, c4]), torch.cat([lead, w4])
+    stage("pack_bits_4", lambda: bitpack.pack_bits(code4, width4, mw4))
+    pframes = torch.from_numpy(smoke.portrait_clip()[:4]).to(dev)
+    stage("encode_step_portrait_4", lambda: transform.encode_step(pframes, ctx4, code, bits))
+    # K3 on one group of the 8x8x8 rows: the launch and tail latency that
+    # bound a grid this small, the practical floor of splice_8.
+    stage("splice_one_group", lambda: splice.splice(
+        rows[:1], sw[:1], ge[:1], bitpack.stream_words(group_pack.GROUP, 27)))
 
     os.makedirs(args.out_dir, exist_ok=True)
     with open(os.path.join(args.out_dir, f"profile_{args.label}.json"), "w") as f:
