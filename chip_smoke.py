@@ -49,11 +49,23 @@ and decode of the bench clip (1920x1080, 64 frames) at 8x8x8 cubes, and the
               the JAX package's; encode and decode fps of each, end to end
               and device-only;
   8. timing   encode and decode fps of both 8x8x8 profiles, end to end and
-              device-only.
+              device-only;
+  9. cli      the port's command line (dct3d_tpu_torch.cli.main), file to
+              file in a temporary directory, on the bench clip written raw:
+              the default encode (an indexed container: its payload the
+              parallel-sink stream of phase 4, its index that encode's bit
+              ends and sync offsets, its content the JAX CLI's, constants
+              below), decode with no frame count, --range and info;
+              --parity --index (the serial-sink stream, the sidecar decode);
+              --turbo --turbo-codec zlib (the JAX turbo digest); --block 4
+              --pad on the portrait clip, decoded with --crop to phase 7's
+              pixels; `python -m dct3d_tpu_torch devices` in a subprocess;
+              encode and decode fps, file to file.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after; every kernel of the path must have launched, and on the 4x4x4
-paths K1 and K4 (8x8x8 cubes only) must not have.
+paths K1 and K4 (8x8x8 cubes only) must not have.  The CLI paths of phase 9
+each do the same.
 
 Each phase prints one JSON line.  Any failed check raises, and the script
 exits non-zero without printing a result; with no card it fails in phase 1.
@@ -64,11 +76,16 @@ never jax or the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
+import os
 import statistics
 import struct
 import subprocess
+import sys
+import tempfile
 import time
 import zlib
 
@@ -76,7 +93,7 @@ import numpy as np
 import torch
 
 import dct3d_tpu_torch as port
-from dct3d_tpu_torch import kernels
+from dct3d_tpu_torch import cli, kernels
 from dct3d_tpu_torch.codec import decoder, entropy, framing, transform, turbo
 from dct3d_tpu_torch.ops import (
     bitpack, dct, exc_pack, exceptions, expgolomb, group_pack, relayout, splice,
@@ -96,6 +113,17 @@ TURBO_CFG = {"deflate_workers": -1, "turbo_codec": "zlib", "zlib_level": 6}
 #   JAX_PLATFORMS=cpu python tools/jax_turbo_constants.py
 JAX_TURBO_BPP = 0.21424653983410494
 JAX_TURBO_DIGEST = "603c6366b5486bfbeaca5e35758cf8eb98f966d669b8d7d9f337fd642b44dd30"
+# The JAX CLI's default encode of the bench clip (an indexed container):
+# the sha256 of its inflated payload, its index bit ends, its
+# container_digest and its bpp, printed by
+#   JAX_PLATFORMS=cpu python tools/jax_cli_constants.py
+JAX_CLI_CONSTANTS = {
+    "payload_sha256": "9dc8f711ff0bd9081c94ca0ee2e035ff72b617e34717eeda00dee430c8faa570",
+    "index_ends": [20500832, 40999136, 61498870, 81998264, 102499336, 123000658, 143502960,
+                   164003764],
+    "digest": "07822ab3b9392f8582c1f802f6e99601be6e384b99fc7c0f61180bc0243b3393",
+    "bpp": 0.3123552637924383,
+}
 # H100 SXM device memory rate (NVIDIA's data sheet), for the kernels' bounds.
 HBM_BYTES_PER_S = 3.35e12
 # Column order of the pair-permuted encode matrix (dct.encode_matrix_pair).
@@ -506,7 +534,9 @@ def phase_k5_kernels(gop: np.ndarray, ctx, card: str) -> list[dict]:
 
 def container_digest(data: bytes) -> str:
     """sha256 over each member's frame count and type and its payload's
-    decompressed streams, so it does not depend on the compressor's build."""
+    decompressed streams (an index member's: its v1 bit ends, as uint64 LE;
+    its v2 sync offsets depend on the compressor), so it does not depend on
+    the compressor's build."""
     h = hashlib.sha256()
     for t, payload, mtype in multihost.split_members(data):
         h.update(struct.pack("<II", t, mtype))
@@ -515,6 +545,10 @@ def container_digest(data: bytes) -> str:
             for n in struct.unpack_from("<IIII", payload, 0):
                 h.update(turbo._decompress(payload[o : o + n]))
                 o += n
+        elif mtype == multihost.MEMBER_INDEX:
+            ends = multihost.parse_index(payload)
+            check(ends is not None, "a torn index member")
+            h.update(struct.pack(f"<{len(ends)}Q", *ends))
         else:
             h.update(zlib.decompress(payload))
     return h.hexdigest()
@@ -733,7 +767,7 @@ def device_ms(frames_dev: torch.Tensor, ctx, data: bytes, positions: list[int],
     return median_ms(encode_device, reps=5), median_ms(decode_device, reps=5)
 
 
-def phase_blocks(clip: np.ndarray, smi: str) -> dict[str, int]:
+def phase_blocks(clip: np.ndarray, smi: str) -> tuple[dict[str, int], np.ndarray]:
     """The 4x4x4 paths through the public entry points, each with the
     launch counts set to 0 before it and read after it:
 
@@ -745,7 +779,7 @@ def phase_blocks(clip: np.ndarray, smi: str) -> dict[str, int]:
          last group, K7/K8 at hc 32 and an odd cube count.
 
     K1 and K4 cover 8x8x8 cubes only and must not run.  Returns run 2's
-    launch counts (K5's row)."""
+    launch counts (K5's row) and its cropped pixels."""
     cfg = port.CodecConfig(**BLOCK_CFG)
     ctx = port.TransformContext(cfg, "cuda")
 
@@ -860,7 +894,161 @@ def phase_blocks(clip: np.ndarray, smi: str) -> dict[str, int]:
                   turbo_encode_device_fps=PT / (enc_ms / 1e3),
                   turbo_decode_device_fps=PT / (dec_ms / 1e3))
     emit(phase="blocks_timing", card=smi, **timing)
-    return k5_launches
+    return k5_launches, cropped
+
+
+def run_cli(*argv: str) -> str:
+    """dct3d_tpu_torch.cli.main in this process; fails unless it exits 0.
+    Returns what it printed on stdout."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(list(argv))
+    check(rc == 0, f"dct3d_tpu_torch {' '.join(argv[:1])} exited {rc}: {argv}")
+    return out.getvalue()
+
+
+def cli_path(name: str, want: tuple, argvs: list, absent: tuple = ()) -> dict:
+    """Run one CLI path's commands with the launch counts set to 0 before
+    them and read after them; every kernel of `want` must have launched and
+    none of `absent`."""
+    kernels.LAUNCHES.clear()
+    for argv in argvs:
+        run_cli(*argv)
+    got = dict(kernels.LAUNCHES)
+    for k in want:
+        check(got.get(k, 0) > 0, f"kernel {k} never ran on the CLI {name} path")
+    for k in absent:
+        check(not got.get(k), f"kernel {k} ran on the CLI {name} path")
+    return got
+
+
+def phase_cli(clip: np.ndarray, lib: dict, portrait_cropped: np.ndarray, smi: str) -> None:
+    """The port's CLI, file to file in a temporary directory, on the bench
+    clip written raw; each path with launch counts of its own:
+
+      1. default encode, then decode with no frame count, --range 20:45 and
+         info: the container holds the library's parallel-sink stream and
+         its index, its content is the JAX CLI's (JAX_CLI_CONSTANTS), the
+         pixels are the library decode's; the container twice over decodes
+         its two members on two threads to the same pixels twice;
+      2. --parity --index: the serial-sink stream, and the sidecar decode;
+      3. --turbo --turbo-codec zlib, decode and --range: the JAX turbo
+         digest, the reference pixels;
+      4. --block 4 --pad on the portrait clip, then decode --block 4 --crop:
+         K5 and K3, phase 7's cropped pixels;
+      5. `python -m dct3d_tpu_torch devices` in a subprocess names the card.
+
+    Then encode and decode fps, file to file, best of 3."""
+    ref8 = ("frames_to_cubes", "group_bits", "group_pack_values", "splice",
+            "cubes_to_frames")
+    geo = (str(W), str(H))
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "src.raw")
+        clip.tofile(src)
+        box, dec = os.path.join(d, "box.d3v"), os.path.join(d, "dec.raw")
+
+        # 1. The default container.
+        launches = {"default": cli_path("default", ref8, [
+            ("encode", src, box, *geo), ("decode", box, dec, *geo),
+            ("decode", box, os.path.join(d, "rng.raw"), *geo, "--range", "20:45")])}
+        with open(box, "rb") as f:
+            data = f.read()
+        members = multihost.split_members(data)
+        check([(m[0], m[2]) for m in members] == [(T, multihost.MEMBER_TEMPORAL),
+                                                  (0, multihost.MEMBER_INDEX)],
+              f"the default encode is not a temporal member and its index: "
+              f"{[(m[0], m[2]) for m in members]}")
+        payload, index = members[0][1], members[1][1]
+        check(payload == lib["par"], "the container's member is not the library's "
+              "parallel-sink stream")
+        check(multihost.parse_index(index) == lib["ends"],
+              "the index ends differ from StreamingEncoder.gop_bit_ends")
+        check(multihost.parse_index_syncs(index) == lib["syncs"],
+              "the index syncs differ from StreamingEncoder.gop_sync_offsets")
+        want = JAX_CLI_CONSTANTS
+        bpp = len(data) * 8 / (W * H * T)
+        check(hashlib.sha256(zlib.decompress(payload)).hexdigest() == want["payload_sha256"]
+              and multihost.parse_index(index) == want["index_ends"]
+              and container_digest(data) == want["digest"],
+              "the default container's content differs from the JAX CLI's")
+        check(abs(bpp - want["bpp"]) <= 0.0005, f"CLI bpp {bpp} vs JAX {want['bpp']}")
+        out = np.fromfile(dec, np.uint8).reshape(T, H, W)
+        check(np.array_equal(out, lib["out_par"]), "CLI decode differs from decode_video")
+        check(np.array_equal(np.fromfile(os.path.join(d, "rng.raw"), np.uint8),
+                             lib["out_par"][20:45].reshape(-1)),
+              "CLI --range 20:45 differs from the slice")
+        # Two members decoded at once on two threads over one card: the
+        # default container twice.
+        box2 = os.path.join(d, "box2.d3v")
+        with open(box2, "wb") as f:
+            f.write(data + data)
+        run_cli("decode", box2, dec, *geo)
+        out2 = np.fromfile(dec, np.uint8).reshape(2 * T, H, W)
+        check(np.array_equal(out2[:T], lib["out_par"]) and np.array_equal(out2[T:], lib["out_par"]),
+              "a two-member container decodes otherwise than its members one by one")
+        info = json.loads(run_cli("info", box))
+        check(info["kind"] == "temporal" and info["members"][1]["type"] == "index"
+              and info["members"][1]["gops"] == T // 8
+              and info["members"][1].get("parallel_inflate") is True,
+              f"info: {info}")
+
+        # 2. --parity --index: the raw serial-sink stream and its sidecar.
+        par_file = os.path.join(d, "parity.bin")
+        launches["parity_index"] = cli_path("parity_index", ref8, [
+            ("encode", src, par_file, *geo, "--parity", "--index"),
+            ("decode", par_file, dec, *geo)])
+        with open(par_file, "rb") as f:
+            check(f.read() == lib["ser"], "the --parity stream is not the serial-sink stream")
+        check(os.path.exists(par_file + ".idx"), "no .idx sidecar")
+        check(np.array_equal(np.fromfile(dec, np.uint8).reshape(T, H, W), lib["out_par"]),
+              "the sidecar decode differs from decode_video")
+
+        # 3. Turbo, zlib wire.
+        tbox = os.path.join(d, "box.d3t")
+        launches["turbo"] = cli_path(
+            "turbo", ("frames_to_cubes", "compact_groups", "plane_to_wire", "wire_to_plane",
+                      "cubes_to_frames"),
+            [("encode", src, tbox, *geo, "--turbo", "--turbo-codec", "zlib"),
+             ("decode", tbox, dec, *geo),
+             ("decode", tbox, os.path.join(d, "trng.raw"), *geo, "--range", "20:45")],
+            absent=("group_pack_values", "splice"))
+        with open(tbox, "rb") as f:
+            check(container_digest(f.read()) == JAX_TURBO_DIGEST,
+                  "the CLI's turbo container differs from the JAX package's")
+        check(np.array_equal(np.fromfile(dec, np.uint8).reshape(T, H, W), lib["out_par"]),
+              "CLI turbo pixels differ from the reference decode")
+        check(np.array_equal(np.fromfile(os.path.join(d, "trng.raw"), np.uint8),
+                             lib["out_par"][20:45].reshape(-1)),
+              "CLI turbo --range differs from the slice")
+
+        # 4. 4x4x4 cubes, the portrait screen padded by the CLI.
+        psrc, pbox = os.path.join(d, "portrait.raw"), os.path.join(d, "portrait.d3v")
+        synthetic_clip(PT, PH, PW).tofile(psrc)
+        launches["block4_pad"] = cli_path(
+            "block4_pad", ("group_pack_codes", "splice"),
+            [("encode", psrc, pbox, str(PW), str(PH), "--block", "4", "--pad"),
+             ("decode", pbox, dec, *map(str, port.padded_geometry(PW, PH, 4, 4)),
+             "--block", "4", "--crop", f"{PW}x{PH}")],
+            absent=("frames_to_cubes", "cubes_to_frames", "group_pack_values"))
+        check(np.array_equal(np.fromfile(dec, np.uint8).reshape(PT, PH, PW), portrait_cropped),
+              "CLI --block 4 --pad/--crop pixels differ from phase 7's")
+
+        # 5. The devices subcommand, as a user runs it.
+        res = subprocess.run([sys.executable, "-m", "dct3d_tpu_torch", "devices"],
+                             capture_output=True, text=True, timeout=300,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(res.returncode == 0 and torch.cuda.get_device_name(0) in res.stdout,
+              f"`python -m dct3d_tpu_torch devices`: rc {res.returncode}, {res.stdout!r}")
+
+        # End-to-end fps, file to file: the best of three runs.
+        enc_s = min(_timed(lambda: run_cli("encode", src, box, *geo)) for _ in range(3))
+        dec_s = min(_timed(lambda: run_cli("decode", box, dec, *geo)) for _ in range(3))
+    emit(phase="cli", card=smi, launches=launches, bpp=bpp, jax_bpp=want["bpp"],
+         content_equals_jax=True, pixels_equal_library=True, range_equals_slice=True,
+         two_members_equal_one_by_one=True,
+         parity_stream_equals_serial_sink=True, turbo_digest_equals_jax=True,
+         portrait_pixels_equal_blocks_phase=True, devices=res.stdout.strip().splitlines(),
+         cli_encode_fps=T / enc_s, cli_decode_fps=T / dec_s)
 
 
 def main() -> None:
@@ -969,7 +1157,7 @@ def main() -> None:
     emit(phase="turbo", **turbo_quant0("cuda"))
 
     # The 4x4x4 paths, each with launch counts of its own.
-    launches4 = phase_blocks(clip, smi)
+    launches4, portrait_cropped = phase_blocks(clip, smi)
     for r in brows:
         r["launches"] = launches4.get(r["name"], 0)
         check(r["launches"] > 0, f"kernel {r['name']} never ran on the padded-portrait path")
@@ -990,6 +1178,11 @@ def main() -> None:
          turbo_encode_fps=T / tenc_best, turbo_decode_fps=T / tdec_best,
          turbo_encode_device_fps=T / (tenc_dev_ms / 1e3),
          turbo_decode_device_fps=T / (tdec_dev_ms / 1e3))
+
+    # The command line, each path with launch counts of its own; after the
+    # library's timing, so that runs under the same conditions as before.
+    phase_cli(clip, {"par": par, "ser": ser, "ends": ends_par, "syncs": syncs,
+                     "out_par": out_par}, portrait_cropped, smi)
 
     print(json.dumps({"kernels": rows + brows + trows}), flush=True)
     print(json.dumps({"ok": True, "device": {

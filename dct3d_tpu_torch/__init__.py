@@ -22,13 +22,21 @@ framing's transposes, and batches that are not whole 256-value groups take
 K5 (``ops/bitpack.pack_bits``).  ``io/pad.py`` edge-replicates frames up to
 block multiples and crops them back.
 
+Default encodes wrap the stream in an indexed D3MH container
+(parallel/multihost.py); ``decode_auto`` (codec/auto.py) reads every form
+the port writes, and ``python -m dct3d_tpu_torch`` (cli.py) is the command
+line of the JAX package's ``python -m dct3d_tpu``.
+
 Every public entry point takes an explicit ``device`` (or a
 ``TransformContext`` that holds one): on "cuda" the kernels run, on "cpu"
 their plain PyTorch versions.  The package imports torch and never jax.
 """
 
-from .codec.decoder import decode_frame_range, decode_video
-from .codec.encoder import StreamingEncoder, encode_video
+from .codec.auto import decode_auto, decode_auto_range
+from .codec.decoder import (
+    StreamingDecoder, decode_frame_range, decode_stream, decode_video,
+)
+from .codec.encoder import StreamingEncoder, encode_stream, encode_video
 from .codec.transform import TransformContext
 from .codec.turbo import (
     TurboEncoder, decode_turbo_container, decode_turbo_range,
@@ -37,19 +45,26 @@ from .codec.turbo import (
 from .config import DEFAULT_CONFIG, CodecConfig
 from .io.pad import crop_frames, pad_frames, padded_geometry
 from .metrics import bits_per_pixel, psnr
+from .profiling import StageTimer
 
 __all__ = [
     "CodecConfig",
     "DEFAULT_CONFIG",
+    "StageTimer",
+    "StreamingDecoder",
     "StreamingEncoder",
     "TransformContext",
     "TurboEncoder",
     "bits_per_pixel",
     "crop_frames",
+    "decode_auto",
+    "decode_auto_range",
     "decode_frame_range",
+    "decode_stream",
     "decode_turbo_container",
     "decode_turbo_range",
     "decode_video",
+    "encode_stream",
     "encode_turbo_video",
     "encode_video",
     "pad_frames",

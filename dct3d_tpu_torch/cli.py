@@ -1,0 +1,1007 @@
+"""Command-line interface of the port: ``python -m dct3d_tpu_torch``.
+
+Follows ``dct3d_tpu/cli.py`` subcommand by subcommand and flag by flag,
+and writes the same files (tests/test_torch_cli.py holds the two to equal
+bytes):
+
+  encode/decode  <in> <out> <width> <height> [frames]  on --device (default
+                 cuda; --device cpu runs the kernels' plain versions)
+  info           inspect a stream or container
+  devices        the CUDA devices, with their power limit
+  capture, split, mix, render, sweep, psnr   as in the JAX package
+
+A default encode writes an indexed D3MH container: one temporal member,
+then an index member with the per-GOP bit ends and the parallel-inflate
+sync offsets, so decode needs no frame count.  The flags of items not
+ported yet exit 2 and name their ROADMAP item (``_UNPORTED``);
+``--pack-bits`` and ``--gops-per-batch`` size the TPU's buffers and
+batches, never the bytes, and are accepted and ignored.  Without a card,
+encode, decode and sweep exit 2 unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import struct
+import sys
+import time
+
+import numpy as np
+
+from . import metrics
+from .config import CodecConfig
+
+#: GOPs read from the input per batch; the encoders still run one GOP per
+#: device step (a batched quantize could round a 4x4x4 tie otherwise).
+_BATCH_GOPS = 4
+
+#: flags of items not ported yet: (attribute, is it set?, flag, ROADMAP
+#: Queue 1 item)
+_UNPORTED = (
+    ("rgb", bool, "--rgb", 11),
+    ("checkpoint_every", bool, "--checkpoint-every", 11),
+    ("mesh", bool, "--mesh", 12),
+    ("transport_delta", bool, "--transport-delta", 7),
+    ("dtype", lambda d: _norm_dtype(d) != "float32", "--dtype bfloat16", 8),
+)
+
+
+def _norm_dtype(d: str) -> str:
+    return {"bf16": "bfloat16", "f32": "float32"}.get(d, d)
+
+
+def _unported(args) -> bool:
+    """Print why and return True when a flag of an unported item is set."""
+    for attr, is_set, flag, item in _UNPORTED:
+        if hasattr(args, attr) and is_set(getattr(args, attr)):
+            print(f"{flag} is not ported to dct3d_tpu_torch yet "
+                  f"(ROADMAP Queue 1, item {item})", file=sys.stderr)
+            return True
+    return False
+
+
+def _device(args):
+    """The torch device of --device, or None after printing why (the
+    caller returns 2): a CUDA device needs a card, and the CPU is used only
+    when asked for."""
+    import torch
+
+    try:
+        dev = torch.device(args.device)
+    except RuntimeError as e:
+        print(f"--device {args.device!r}: {e}", file=sys.stderr)
+        return None
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        print(f"--device {args.device}: no CUDA device "
+              "(torch.cuda.is_available() is false); --device cpu runs the "
+              "plain PyTorch versions of the kernels on the CPU",
+              file=sys.stderr)
+        return None
+    return dev
+
+
+def _cfg_from_args(args) -> CodecConfig:
+    level = args.zlib_level
+    if level is None:
+        # Reference parity wants Z_BEST_COMPRESSION (encoder.c:139); the
+        # turbo profile deflates the raw nibble plane, where level 9 costs
+        # far more time for ~5% rate, so it defaults to 6.  Turbo's default
+        # codec is zstd, which ignores this knob.
+        level = 6 if getattr(args, "turbo", False) else 9
+    return CodecConfig(
+        turbo_codec=getattr(args, "turbo_codec", "zstd"),
+        turbo_zstd_level=getattr(args, "turbo_zstd_level", None) or 3,
+        block_w=args.block,
+        block_h=args.block,
+        block_d=args.block,
+        quant_strength=args.quant,
+        quant_bias=getattr(args, "quant_bias", 0.5),
+        zlib_level=level,
+        deflate_workers=0 if getattr(args, "parity", False) else args.deflate_workers,
+        pack_bits_per_value=getattr(args, "pack_bits", None) or 4,
+    )
+
+
+def _add_codec_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument(
+        "width", type=int, nargs="?", default=None,
+        help="frame width (required for raw input; PNG sequences and .y4m "
+        "streams carry their own geometry)",
+    )
+    p.add_argument("height", type=int, nargs="?", default=None)
+    p.add_argument(
+        "frames", type=int, nargs="?", default=None,
+        help="frame count (default: derived from file size, the fallback the "
+        "reference intended at Encoder.java:34-36)",
+    )
+    p.add_argument(
+        "--device", default="cuda",
+        help="torch device: cuda (default; exits 2 without a card) or cpu "
+        "(the kernels' plain PyTorch versions)",
+    )
+    p.add_argument("--block", type=int, default=8, help="DCT cube edge (8 or 4)")
+    p.add_argument("--quant", type=int, default=5, help="quantization strength")
+    p.add_argument(
+        "--quant-bias", type=float, default=0.5,
+        help="quantizer rounding bias; 0.5 = reference parity, ~0.4 = "
+        "deadzone (the stream stays reference-decodable)",
+    )
+    p.add_argument(
+        "--zlib-level", type=int, default=None,
+        help="DEFLATE level (default 9 = reference C encoder; the turbo "
+        "profile defaults to 6)",
+    )
+    p.add_argument(
+        "--gops-per-batch", type=int, default=4,
+        help="accepted for the JAX CLI's scripts and ignored: it batches TPU "
+        "dispatches, never the bytes",
+    )
+    p.add_argument(
+        "--deflate-workers", type=int, default=-1,
+        help="DEFLATE threads (-1 = all cores but one; 0 = serial "
+        "reference-parity stream layout)",
+    )
+    p.add_argument(
+        "--parity", action="store_true",
+        help="byte-exact stream layout vs the serial reference encoder "
+        "(same as --deflate-workers 0)",
+    )
+    p.add_argument(
+        "--pack-bits", type=int, default=None, metavar="N",
+        help="accepted for the JAX CLI's scripts and ignored: it sizes TPU "
+        "pack buffers, never the bytes",
+    )
+    p.add_argument(
+        "--dtype", default="float32",
+        choices=("float32", "bfloat16", "f32", "bf16"),
+        help="transform matmul dtype: float32 only (bfloat16 is not ported "
+        "yet)",
+    )
+    p.add_argument(
+        "--stats", action="store_true",
+        help="encode: print per-stage timing/bandwidth JSON to stderr",
+    )
+    p.add_argument("--transport-delta", action="store_true",
+                   help="not ported yet (exits 2)")
+    p.add_argument("--rgb", action="store_true", help="not ported yet (exits 2)")
+    p.add_argument(
+        "--turbo", action="store_true",
+        help="encode: turbo (planar) profile — the wire carries the "
+        "nibble-plane device transport per GOP (D3MH type-5 members); "
+        "identical pixels, smaller files; only this codec reads it (decode "
+        "auto-detects; see docs/FORMAT.md)",
+    )
+    p.add_argument(
+        "--turbo-codec", choices=("zstd", "zlib"), default="zstd",
+        help="turbo payload codec (zstd when the zstandard module imports, "
+        "else zlib). Decode sniffs per stream — no flag needed",
+    )
+    p.add_argument(
+        "--turbo-zstd-level", type=int, default=None,
+        help="zstd level for turbo payloads (default 3)",
+    )
+    p.add_argument(
+        "--index", action="store_true", default=None,
+        help="encode: wrap the stream in a D3MH container with a seekable "
+        "per-GOP bit index member (DEFAULT for file outputs); with --parity "
+        "the reference-byte-exact stream stays raw and the index goes to a "
+        "<output>.idx sidecar (decode auto-loads it)",
+    )
+    p.add_argument(
+        "--no-index", dest="index", action="store_false",
+        help="encode: emit the raw headerless stream (decode then needs an "
+        "explicit frame count)",
+    )
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="GOPS",
+                   help="not ported yet (exits 2)")
+    p.add_argument(
+        "--profile-dir", default=None,
+        help="write a torch.profiler trace of the run to DIR/trace.json",
+    )
+    p.add_argument("--mesh", default=None, metavar="GxT",
+                   help="not ported yet (exits 2)")
+    p.add_argument(
+        "--pad", action="store_true",
+        help="encode: edge-replicate frames up to block multiples; decode "
+        "then takes the padded geometry and --crop WxH",
+    )
+    p.add_argument(
+        "--crop", default=None, metavar="WxH",
+        help="decode: crop the decoded frames back to WxH (pairs with "
+        "encode --pad)",
+    )
+    p.add_argument(
+        "--range", default=None, metavar="A:B", dest="frame_range",
+        help="decode: random-access decode of frames [A, B) only",
+    )
+
+
+def _load_footage(args):
+    """Detect and load non-raw input (stdin pipe / PNG sequence / y4m).
+
+    Returns (video_or_None, width, height): video None means "raw file,
+    stream it from disk"; a StreamFrames streams a pipe; otherwise the
+    footage is in memory and geometry came from the content.
+    """
+    inp = args.input
+    if inp == "-":
+        if args.width is None or args.height is None:
+            print("stdin input needs explicit width and height",
+                  file=sys.stderr)
+            raise SystemExit(2)
+        from .io import rawvideo
+
+        stream = rawvideo.StreamFrames(sys.stdin.buffer, args.width,
+                                       args.height)
+        return stream, args.width, args.height
+    is_png = (
+        os.path.isdir(inp)
+        or any(c in inp for c in "*?[")
+        or inp.lower().endswith(".png")
+    )
+    is_y4m = False
+    if not is_png and os.path.isfile(inp):
+        with open(inp, "rb") as f:
+            is_y4m = f.read(9) == b"YUV4MPEG2"
+    if is_png:
+        from .io.png import read_png_sequence
+
+        video = read_png_sequence(inp, frames=args.frames, gray=True)
+    elif is_y4m:
+        from .io.y4m import read_y4m
+
+        video, _info = read_y4m(inp, frames=args.frames)
+    else:
+        return None, args.width, args.height
+    h, w = video.shape[1], video.shape[2]
+    if (args.width, args.height) not in ((None, None), (w, h)):
+        print(f"note: input carries its own geometry {w}x{h}; "
+              "ignoring the command-line values", file=sys.stderr)
+    return video, w, h
+
+
+def cmd_encode(args) -> int:
+    from .codec.encoder import StreamingEncoder
+    from .codec.transform import TransformContext
+    from .io import rawvideo
+    from .profiling import profile_to
+
+    if _unported(args):
+        return 2
+    cfg = _cfg_from_args(args)
+    if args.output == "-" and args.index:
+        print("stdout output cannot combine with --index (needs a seekable "
+              "file)", file=sys.stderr)
+        return 2
+    say = (lambda *a: print(*a, file=sys.stderr)) \
+        if args.output == "-" else print
+    if args.turbo:
+        for flag, why in (
+            ("index", "turbo members are already per-GOP seekable"),
+            ("parity", "turbo is an extension profile, never byte-parity"),
+        ):
+            if getattr(args, flag, None):
+                print(f"--turbo cannot combine with --{flag} ({why})",
+                      file=sys.stderr)
+                return 2
+    elif args.output == "-" and args.index is None and not args.parity:
+        print("note: stdout cannot seek to patch a container header, so the "
+              "index is dropped and the output is the raw headerless stream "
+              "(decode needs the frame count; write to a file for the "
+              "indexed container)", file=sys.stderr)
+    dev = _device(args)
+    if dev is None:
+        return 2
+    video, width, height = _load_footage(args)
+    if width is None or height is None:
+        print("raw input needs explicit width and height", file=sys.stderr)
+        return 2
+    stream = video if isinstance(video, rawvideo.StreamFrames) else None
+    if args.pad:
+        from .io.pad import pad_frames, padded_geometry, padded_stream
+
+        pw, ph = padded_geometry(width, height, cfg.block_w, cfg.block_h)
+        if (pw, ph) != (width, height):
+            if stream is not None:
+                video = stream = padded_stream(stream, cfg.block_w,
+                                               cfg.block_h)
+            else:
+                if video is None:
+                    video = rawvideo.read_video(args.input, width, height,
+                                                args.frames)
+                video = pad_frames(video, cfg.block_w, cfg.block_h)
+            print(
+                f"note: padded {width}x{height} -> {pw}x{ph}; decode with "
+                f"geometry {pw} {ph} and --crop {width}x{height}",
+                file=sys.stderr,
+            )
+            width, height = pw, ph
+    if stream is not None:
+        total = None  # a pipe's length is unknowable up front
+    elif video is not None:
+        total = video.shape[0]
+    else:
+        total = rawvideo.frame_count(args.input, width, height)
+    if total is None:
+        frames = args.frames  # None = until EOF; tail trims per batch
+    else:
+        frames = total if args.frames is None else min(args.frames, total)
+    if frames is not None:
+        frames -= frames % cfg.gop_size
+        if frames == 0:
+            print(
+                f"nothing to encode: input holds fewer than one GOP "
+                f"({cfg.gop_size} frames; reference truncates the same way, "
+                "Encoder.java:39-40)", file=sys.stderr,
+            )
+            return 2
+    align = cfg.gop_size
+    ctx = TransformContext(cfg, dev)
+    if args.turbo:
+        from .codec.turbo import TurboEncoder
+
+        enc = TurboEncoder(width, height, cfg, ctx)
+        t0 = time.perf_counter()
+        written = 0
+        with profile_to(args.profile_dir), _open_out(args.output) as out:
+            for batch in _frame_batches(args, video, width, height, align,
+                                        frames):
+                written += out.write(enc.push(batch))
+            written += out.write(enc.finish())
+        dt = time.perf_counter() - t0
+        frames = enc.frames_encoded
+        if frames == 0:
+            print(f"nothing to encode: input shorter than one "
+                  f"{align}-frame step", file=sys.stderr)
+            return 2
+        say(
+            f"encoded {frames} frames {width}x{height} -> {written} bytes "
+            f"(turbo, "
+            f"{metrics.bits_per_pixel(written, width, height, frames):.3f} "
+            f"bpp) in {dt:.2f}s ({frames / dt:.1f} fps)"
+        )
+        return 0
+    enc = StreamingEncoder(width, height, cfg, ctx)
+    # Seekability is the default for file outputs: the stream is wrapped in
+    # an indexed container, so decode needs no frame count and the host
+    # entropy stage jumps straight to every GOP.  --parity keeps the raw
+    # reference-byte-exact layout (with --index the index goes to a
+    # <output>.idx sidecar); --no-index keeps the raw headerless stream;
+    # stdout cannot seek to patch the header, so it stays raw.
+    write_container = (not args.parity and args.index is not False
+                       and args.output != "-")
+    write_sidecar = bool(args.index) and args.parity
+    t0 = time.perf_counter()
+    written = 0
+    with profile_to(args.profile_dir), _open_out(args.output) as out:
+        if write_container:
+            from .parallel.multihost import (
+                _MAX_MEMBER_FRAMES, MEMBER_MAGIC, MEMBER_TEMPORAL,
+                make_index_member,
+            )
+
+            if frames is not None and frames > _MAX_MEMBER_FRAMES:
+                if args.index:
+                    print(f"--index: {frames} frames exceed one member's "
+                          f"2^24-1 limit", file=sys.stderr)
+                    return 2
+                print(f"note: {frames} frames exceed one indexed member's "
+                      "2^24-1 limit; writing a raw headerless stream",
+                      file=sys.stderr)
+                write_container = False
+        if write_container:
+            # Placeholder member header now; the frame count and payload
+            # length are patched after streaming (a pipe's length is
+            # unknowable up front), the index member appended last.
+            if frames is None:  # pipe: bound by the member header field
+                frames = _MAX_MEMBER_FRAMES - _MAX_MEMBER_FRAMES % align
+            out.write(MEMBER_MAGIC + struct.pack("<IQ", 0, 0))
+        for batch in _frame_batches(args, video, width, height, align, frames):
+            written += out.write(enc.push(batch))
+        written += out.write(enc.finish())
+        if write_container:
+            out.write(make_index_member(enc.gop_bit_ends,
+                                        sync_offsets=enc.gop_sync_offsets))
+            out.seek(4)
+            out.write(struct.pack(
+                "<IQ", (MEMBER_TEMPORAL << 24) | enc.frames_encoded, written
+            ))
+            written = out.seek(0, os.SEEK_END)
+    if write_sidecar:
+        from .parallel.multihost import make_index_member
+
+        with open(args.output + ".idx", "wb") as sf:
+            sf.write(make_index_member(enc.gop_bit_ends))
+        say(f"index sidecar -> {args.output}.idx (stream file stays "
+            "reference-byte-exact)")
+    dt = time.perf_counter() - t0
+    frames = enc.frames_encoded
+    if frames == 0:
+        print(f"nothing to encode: input shorter than one "
+              f"{align}-frame step", file=sys.stderr)
+        return 2
+    say(
+        f"encoded {frames} frames {width}x{height} -> {written} bytes "
+        f"({metrics.bits_per_pixel(written, width, height, frames):.3f} bpp) "
+        f"in {dt:.2f}s ({frames / dt:.1f} fps)"
+    )
+    if args.stats:
+        print(enc.timer.report(), file=sys.stderr)
+    return 0
+
+
+def _frame_batches(args, video, width, height, align, frames):
+    """Aligned frame batches from in-memory footage, a raw file, or a
+    stdin pipe (constant-RSS streaming; frames None = until EOF)."""
+    from .io import rawvideo
+
+    step = align * _BATCH_GOPS
+    if isinstance(video, rawvideo.StreamFrames):
+        yield from video.iter_batches(step, frames, align=align)
+    elif video is not None:
+        for i in range(0, frames, step):
+            yield video[i : min(i + step, frames)]
+    else:
+        yield from rawvideo.iter_frame_batches(
+            args.input, width, height, step, frames, align=align
+        )
+
+
+@contextlib.contextmanager
+def _open_out(path):
+    """Output sink; '-' streams to stdout (status then prints to stderr)."""
+    if path == "-":
+        yield sys.stdout.buffer
+        sys.stdout.buffer.flush()
+    else:
+        with open(path, "wb") as f:
+            yield f
+
+
+def _read_sidecar(path: str, cfg: CodecConfig):
+    """(frames, positions, sync offsets, last bit end) from an .idx
+    sidecar next to a raw stream, or all None when there is none or it is
+    torn."""
+    from .parallel.multihost import (
+        MEMBER_INDEX, gop_positions, parse_index, parse_index_syncs,
+        split_members,
+    )
+
+    if not os.path.exists(path):
+        return None, None, None, None
+    try:
+        with open(path, "rb") as f:
+            members = split_members(f.read())
+    except ValueError:
+        members = []
+    ipay = next((p for _, p, t in members if t == MEMBER_INDEX), None)
+    ends = parse_index(ipay) if ipay is not None else None
+    if not ends:
+        return None, None, None, None
+    frames = len(ends) * cfg.gop_size
+    return (frames, gop_positions(ends, len(ends), cfg.gop_size, frames),
+            parse_index_syncs(ipay), ends[-1])
+
+
+def _refuse_container(members) -> bool:
+    """Print why and return True for containers the port cannot decode:
+    RGB and turbo-RGB (not ported yet) and unknown member types."""
+    from .codec.turbo import is_turbo_container, is_turbo_rgb_container
+    from .parallel.multihost import container_kind
+
+    if is_turbo_container(members):
+        return False
+    kind = ("turbo-rgb" if is_turbo_rgb_container(members)
+            else container_kind(members))
+    if kind in ("rgb", "turbo-rgb"):
+        print(f"{kind} containers are not decoded by dct3d_tpu_torch yet "
+              "(ROADMAP Queue 1, item 11)", file=sys.stderr)
+        return True
+    if kind == "unknown":
+        print(f"unrecognized member type tags {[m[2] for m in members]}",
+              file=sys.stderr)
+        return True
+    return False
+
+
+def cmd_decode(args) -> int:
+    from .codec.auto import decode_auto_range
+    from .codec.decoder import decode_video
+    from .codec.transform import TransformContext
+    from .profiling import profile_to
+
+    if _unported(args):
+        return 2
+    cfg = _cfg_from_args(args)
+    width, height = args.width, args.height
+    if os.path.exists(args.input + ".meta"):
+        print(f"{args.input}.meta: checkpointed containers are not decoded "
+              "by dct3d_tpu_torch yet (ROADMAP Queue 1, item 11)",
+              file=sys.stderr)
+        return 2
+    if width is None or height is None:
+        print("decode requires explicit width and height", file=sys.stderr)
+        return 2
+    dev = _device(args)
+    if dev is None:
+        return 2
+    if args.input == "-":
+        data = sys.stdin.buffer.read()
+    elif os.path.exists(args.input):
+        with open(args.input, "rb") as f:
+            data = f.read()
+    else:
+        print(f"no such input: {args.input}", file=sys.stderr)
+        return 2
+    head = data[:4]
+    frame_range = None
+    if args.frame_range is not None:
+        a, _, b = args.frame_range.partition(":")
+        try:
+            frame_range = (int(a), int(b))
+            if not (0 <= frame_range[0] < frame_range[1]):
+                raise ValueError
+        except ValueError:
+            print(f"--range expects A:B with 0 <= A < B, got "
+                  f"{args.frame_range!r}", file=sys.stderr)
+            return 2
+        if args.frames is not None:
+            print("--range and an explicit frame count are mutually "
+                  "exclusive", file=sys.stderr)
+            return 2
+    # Raw stream with an .idx sidecar (encode --parity --index): the
+    # stream file is reference-byte-exact, the sidecar supplies the frame
+    # count and the per-GOP positions for the indexed entropy path.
+    side_frames = side_positions = side_syncs = side_end = None
+    if head != b"D3MH" and args.input != "-":
+        side_frames, side_positions, side_syncs, side_end = _read_sidecar(
+            args.input + ".idx", cfg)
+    if (head != b"D3MH" and args.frames is None
+            and frame_range is None and side_frames is None):
+        print("decode requires an explicit frame count or --range "
+              "(headerless stream, as in the reference: Decoder.java:18; "
+              "default encodes write an indexed container or an .idx "
+              "sidecar that makes the count optional)",
+              file=sys.stderr)
+        return 2
+    members = None
+    if head == b"D3MH":
+        from .parallel.multihost import split_members
+
+        members = split_members(data)
+        if _refuse_container(members):
+            return 2
+    ctx = TransformContext(cfg, dev)
+    t0 = time.perf_counter()
+    with profile_to(args.profile_dir):
+        if frame_range is not None:
+            video = decode_auto_range(
+                data, width, height, *frame_range, cfg, ctx=ctx,
+                positions=side_positions, index_end=side_end)
+        elif members is not None:
+            from .codec.turbo import decode_turbo_container, is_turbo_container
+            from .parallel.multihost import decode_multihost_container
+
+            if is_turbo_container(members):
+                video = decode_turbo_container(data, width, height, cfg, ctx)
+            else:
+                video = decode_multihost_container(data, width, height, cfg,
+                                                   ctx=ctx)
+            if args.frames is not None:
+                video = video[: args.frames]
+        else:
+            frames = args.frames if args.frames is not None else side_frames
+            positions = side_positions
+            if positions is not None and frames // cfg.gop_size > len(positions):
+                positions = None  # a short sidecar: scan instead
+            video = decode_video(data, width, height, frames, cfg, ctx,
+                                 positions=positions, sync_offsets=side_syncs,
+                                 index_end=side_end)
+    return _write_decoded(args, video, width, height, t0)
+
+
+def _write_decoded(args, video, width, height, t0) -> int:
+    """Shared tail of cmd_decode: crop, write (.y4m or raw), report."""
+    from .io import rawvideo
+
+    dt = time.perf_counter() - t0
+    if args.crop:
+        from .io.pad import crop_frames
+
+        cw, _, ch = args.crop.lower().partition("x")
+        video = crop_frames(video, int(cw), int(ch))
+        width, height = int(cw), int(ch)
+    if args.output == "-":
+        sys.stdout.buffer.write(np.ascontiguousarray(video).tobytes())
+        sys.stdout.buffer.flush()
+    elif args.output.lower().endswith(".y4m"):
+        from .io.y4m import write_y4m
+
+        write_y4m(args.output, video)
+    else:
+        rawvideo.write_video(args.output, video)
+    print(
+        f"decoded {video.shape[0]} frames {width}x{height} "
+        f"in {dt:.2f}s ({video.shape[0] / dt:.1f} fps)",
+        file=sys.stderr if args.output == "-" else sys.stdout,
+    )
+    return 0
+
+
+def cmd_info(args) -> int:
+    """Inspect a bitstream / container."""
+    import zlib
+
+    with open(args.input, "rb") as f:
+        data = f.read()
+    out: dict = {"bytes": len(data)}
+    if data[:4] == b"D3MH":
+        from .codec.turbo import (
+            _ZSTD_MAGIC, MEMBER_TURBO, MEMBER_TURBO_RGB, is_turbo_container,
+            is_turbo_rgb_container,
+        )
+        from .parallel.multihost import (
+            MEMBER_INDEX, container_kind, parse_index, parse_index_syncs,
+            split_members,
+        )
+
+        members = split_members(data)
+        type_names = {0: "temporal", 1: "red", 2: "green", 3: "blue",
+                      4: "index", 5: "turbo", 6: "turbo-red",
+                      7: "turbo-green", 8: "turbo-blue"}
+
+        def _index_info(payload):
+            ends = parse_index(payload)
+            if ends is None:
+                return {"torn": True}
+            info = {"gops": len(ends)}
+            if parse_index_syncs(payload) is not None:
+                info["parallel_inflate"] = True  # v2 sync offsets present
+            return info
+
+        out["format"] = "d3mh-container"
+        out["kind"] = (
+            "turbo" if is_turbo_container(members)
+            else "turbo-rgb" if is_turbo_rgb_container(members)
+            else container_kind(members)
+        )
+        out["members"] = [
+            {"frames": frames, "bytes": len(payload),
+             "type": type_names.get(mtype, mtype),
+             **(_index_info(payload) if mtype == MEMBER_INDEX else {})}
+            for frames, payload, mtype in members
+        ]
+        if out["kind"] == "rgb":
+            out["frames"] = members[0][0]
+        elif out["kind"] == "turbo-rgb":
+            out["frames"] = sum(m[0] for m in members
+                                if m[2] == MEMBER_TURBO_RGB[0])
+        else:
+            out["frames"] = sum(m[0] for m in members)
+        if out["kind"] in ("turbo", "turbo-rgb"):
+            payload = next((m[1] for m in members
+                            if m[2] in (MEMBER_TURBO, *MEMBER_TURBO_RGB)), None)
+            if payload is not None:
+                out["codec"] = (
+                    "zstd" if payload[16:20] == _ZSTD_MAGIC else "zlib"
+                )
+        meta_path = args.input + ".meta"
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                out["meta"] = json.load(f)
+    else:
+        out["format"] = "raw-zlib-stream (reference-compatible, headerless)"
+        try:
+            payload = zlib.decompressobj().decompress(data, 1 << 20)
+            out["payload_bytes_sampled"] = len(payload)
+            out["note"] = ("geometry travels out of band; supply width/"
+                           "height/frames to decode (Decoder.java:17-28)")
+        except zlib.error:
+            out["format"] = "unknown (not zlib, not D3MH)"
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def _power_limits() -> dict[int, str]:
+    """nvidia-smi's power limit by device index; empty where nvidia-smi
+    is missing or fails."""
+    import subprocess
+
+    try:
+        res = subprocess.run(
+            ["nvidia-smi", "--query-gpu=index,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True,
+        )
+    except (OSError, subprocess.SubprocessError):
+        return {}
+    out = {}
+    for line in res.stdout.splitlines():
+        idx, _, limit = line.partition(",")
+        if idx.strip().isdigit():
+            out[int(idx)] = limit.strip()
+    return out
+
+
+def cmd_devices(_args) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("platform: cuda  devices: 0 (no CUDA device: "
+              "torch.cuda.is_available() is false; encode and decode need "
+              "--device cpu here)")
+        return 0
+    n = torch.cuda.device_count()
+    limits = _power_limits()
+    print(f"platform: cuda  devices: {n}")
+    for i in range(n):
+        limit = f"  power limit: {limits[i]}" if i in limits else ""
+        print(f"  [{i}] {torch.cuda.get_device_name(i)}{limit}")
+    return 0
+
+
+def cmd_capture(args) -> int:
+    from .io import synthetic
+
+    cfg = CodecConfig()
+    t, h, w = synthetic.capture(
+        args.output, args.frames, args.height, args.width,
+        cfg, kind=args.kind, rgb=args.rgb, seed=args.seed,
+    )
+    ch = 3 if args.rgb else 1
+    print(f"captured {t} frames {w}x{h} x{ch}B/px -> {args.output}")
+    return 0
+
+
+def cmd_split(args) -> int:
+    from .io import rgb
+
+    outs = rgb.split_file(args.input, args.prefix)
+    print("wrote: " + " ".join(outs))
+    return 0
+
+
+def cmd_mix(args) -> int:
+    from .io import rgb
+
+    out = rgb.mix_files(args.prefix, args.output)
+    print(f"wrote: {out}")
+    return 0
+
+
+def cmd_render(args) -> int:
+    from .io import render
+
+    if args.play:
+        try:
+            return render.play_video(
+                args.input, args.width, args.height, fps=args.fps,
+                channels=3 if args.rgb else 1, player=args.player,
+            )
+        except RuntimeError as e:
+            print(str(e), file=sys.stderr)
+            return 2
+    stats = render.video_stats(
+        args.input, args.width, args.height, channels=3 if args.rgb else 1
+    )
+    print(json.dumps(stats))
+    if args.png_prefix:
+        sel = None  # default: first / middle / last
+        if args.frames == "all":
+            sel = list(range(stats["frames"]))
+        elif args.frames and ":" in args.frames:
+            a, _, b = args.frames.partition(":")
+            sel = list(range(int(a or 0), min(int(b or stats["frames"]),
+                                              stats["frames"])))
+        elif args.frames:
+            sel = [int(x) for x in args.frames.split(",")]
+        outs = render.render_frames(
+            args.input, args.width, args.height, args.png_prefix,
+            frames=sel, channels=3 if args.rgb else 1,
+        )
+        print("wrote: " + " ".join(outs))
+    return 0
+
+
+def cmd_sweep(args) -> int:
+    """Rate-distortion sweep: quant strength x block size -> bpp/PSNR/fps."""
+    from .codec.decoder import decode_video
+    from .codec.encoder import encode_video
+    from .codec.transform import TransformContext
+    from .io import rawvideo
+
+    if _unported(args):
+        return 2
+    dev = _device(args)
+    if dev is None:
+        return 2
+    if args.input == "synthetic":
+        from .io import synthetic
+
+        video = synthetic.moving_gradient(
+            args.frames or 32, args.height, args.width
+        )
+    else:
+        total = rawvideo.frame_count(args.input, args.width, args.height)
+        n = total if args.frames is None else min(args.frames, total)
+        video = rawvideo.read_video(args.input, args.width, args.height, n)
+    t, h, w = video.shape
+
+    strengths = [int(s) for s in args.quants.split(",")]
+    blocks = [int(b) for b in args.blocks.split(",")]
+    rows = []
+    for block in blocks:
+        for q in strengths:
+            cfg = CodecConfig(
+                block_w=block, block_h=block, block_d=block,
+                quant_strength=q, quant_bias=args.quant_bias,
+                zlib_level=args.zlib_level,
+                deflate_workers=args.deflate_workers,
+            )
+            tt = t - t % cfg.gop_size
+            if tt == 0:
+                print(f"skipping block={block}: fewer than one "
+                      f"{cfg.gop_size}-frame GOP", file=sys.stderr)
+                continue
+            ctx = TransformContext(cfg, dev)
+            t0 = time.perf_counter()
+            data = encode_video(video[:tt], cfg, ctx)
+            enc_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out = decode_video(data, w, h, tt, cfg, ctx)
+            dec_s = time.perf_counter() - t0
+            row = {
+                "block": block,
+                "quant": q,
+                "bpp": round(metrics.bits_per_pixel(len(data), w, h, tt), 4),
+                "psnr_db": round(metrics.psnr(video[:tt], out), 3),
+                "encode_fps": round(tt / enc_s, 2),
+                "decode_fps": round(tt / dec_s, 2),
+            }
+            if args.turbo:
+                from .codec.turbo import encode_turbo_video
+
+                tdata = encode_turbo_video(video[:tt], cfg, ctx)
+                row["turbo_bpp"] = round(
+                    metrics.bits_per_pixel(len(tdata), w, h, tt), 4
+                )
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump(rows, f, indent=2)
+    return 0
+
+
+def cmd_psnr(args) -> int:
+    from .io import rawvideo
+
+    ch = 3 if args.rgb else 1
+    a = rawvideo.read_video(args.a, args.width, args.height, channels=ch)
+    b = rawvideo.read_video(args.b, args.width, args.height, channels=ch)
+    t = min(a.shape[0], b.shape[0])
+    print(f"PSNR: {metrics.psnr(a[:t], b[:t]):.3f} dB over {t} frames")
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="dct3d_tpu_torch",
+        description="3D-DCT video codec, PyTorch/CUDA port",
+    )
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    pe = sub.add_parser("encode", help="raw grayscale video -> bitstream")
+    _add_codec_args(pe)
+    pe.set_defaults(fn=cmd_encode)
+
+    pd = sub.add_parser("decode", help="bitstream -> raw grayscale video")
+    _add_codec_args(pd)
+    pd.set_defaults(fn=cmd_decode)
+
+    pv = sub.add_parser("devices", help="list CUDA devices")
+    pv.set_defaults(fn=cmd_devices)
+
+    pi = sub.add_parser("info", help="inspect a bitstream or container")
+    pi.add_argument("input")
+    pi.set_defaults(fn=cmd_info)
+
+    pc = sub.add_parser("capture", help="generate a synthetic raw clip")
+    pc.add_argument("output")
+    pc.add_argument("width", type=int)
+    pc.add_argument("height", type=int)
+    pc.add_argument("frames", type=int)
+    pc.add_argument("--kind", choices=["gradient", "blocks"], default="gradient")
+    pc.add_argument("--rgb", action="store_true")
+    pc.add_argument("--seed", type=int, default=0)
+    pc.set_defaults(fn=cmd_capture)
+
+    ps = sub.add_parser("split", help="interleaved RGB -> planar .red/.green/.blue")
+    ps.add_argument("input")
+    ps.add_argument("--prefix", default=None)
+    ps.set_defaults(fn=cmd_split)
+
+    pm = sub.add_parser("mix", help="planar .red/.green/.blue -> interleaved RGB")
+    pm.add_argument("prefix")
+    pm.add_argument("output")
+    pm.set_defaults(fn=cmd_mix)
+
+    pr = sub.add_parser("render", help="raw video stats + PNG export")
+    pr.add_argument("input")
+    pr.add_argument("width", type=int)
+    pr.add_argument("height", type=int)
+    pr.add_argument("--rgb", action="store_true")
+    pr.add_argument("--png-prefix", default=None)
+    pr.add_argument(
+        "--frames", default=None,
+        help='frames to export: "all", "a:b", or a comma list '
+        "(default: first/middle/last)",
+    )
+    pr.add_argument(
+        "--play", action="store_true",
+        help="fps-paced playback: pipe the video as y4m into a player "
+        "(ffplay/mpv, or any y4m-reading command via --player)",
+    )
+    pr.add_argument("--fps", type=float, default=30.0,
+                    help="playback rate for --play")
+    pr.add_argument(
+        "--player", default=None,
+        help="player command reading YUV4MPEG2 on stdin "
+        "(default: ffplay, then mpv)",
+    )
+    pr.set_defaults(fn=cmd_render)
+
+    pw = sub.add_parser(
+        "sweep", help="rate-distortion sweep (quant x block -> bpp/PSNR/fps)"
+    )
+    pw.add_argument("input", help='raw grayscale video path, or "synthetic"')
+    pw.add_argument("width", type=int)
+    pw.add_argument("height", type=int)
+    pw.add_argument("frames", type=int, nargs="?", default=None)
+    pw.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default) or cpu")
+    pw.add_argument("--quants", default="0,1,2,5,10,20",
+                    help="comma-separated quant strengths")
+    pw.add_argument("--blocks", default="8,4",
+                    help="comma-separated cube edges")
+    pw.add_argument("--quant-bias", type=float, default=0.5)
+    pw.add_argument("--zlib-level", type=int, default=9)
+    pw.add_argument("--deflate-workers", type=int, default=-1)
+    pw.add_argument(
+        "--dtype", default="float32",
+        choices=("float32", "bfloat16", "f32", "bf16"),
+        help="transform dtype: float32 only (bfloat16 is not ported yet)",
+    )
+    pw.add_argument("--output", default=None, help="write JSON table here")
+    pw.add_argument(
+        "--turbo", action="store_true",
+        help="also report the turbo profile's bpp at each point "
+        "(pixels are identical, so PSNR is shared)",
+    )
+    pw.set_defaults(fn=cmd_sweep)
+
+    pq = sub.add_parser("psnr", help="PSNR between two raw videos")
+    pq.add_argument("a")
+    pq.add_argument("b")
+    pq.add_argument("width", type=int)
+    pq.add_argument("height", type=int)
+    pq.add_argument("--rgb", action="store_true",
+                    help="inputs are interleaved RGB (3 B/px); PSNR over "
+                    "all three channels")
+    pq.set_defaults(fn=cmd_psnr)
+
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

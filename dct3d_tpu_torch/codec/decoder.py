@@ -7,6 +7,8 @@ nibble planes + exceptions (C, codec/entropy.py); each GOP goes to the
 device with non-blocking copies from pinned memory, is inverse-transformed
 there (codec/transform.planar4_to_frames), and comes back with a
 non-blocking copy while the host decodes the next GOPs.
+``StreamingDecoder`` / ``decode_stream`` run the same device step on
+compressed bytes fed in pieces (entropy.InflateSource).
 
 Geometry (width/height/frame count) is supplied out of band exactly like
 the reference (no container header, Decoder.java:17-28, main.c:27-44).
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import collections
 import zlib
+from typing import Iterable, Iterator
 
 import numpy as np
 import torch
@@ -82,6 +85,56 @@ def _to_host_async(frames: torch.Tensor):
     return host, done
 
 
+class StreamingDecoder:
+    """Feed compressed bytes, pull decoded frame batches.
+
+    The host inflates incrementally (entropy.InflateSource) and decodes
+    each buffered GOP into a nibble plane; the device step is decode_video's
+    (_dispatch_planar4), so the pixels are decode_video's.
+    """
+
+    def __init__(
+        self,
+        width: int,
+        height: int,
+        cfg: CodecConfig | None = None,
+        ctx: TransformContext | None = None,
+        gops_per_batch: int = 1,
+        device=None,
+    ) -> None:
+        self.cfg = cfg or CodecConfig()
+        self.cfg.validate_geometry(width, height)
+        self.width = width
+        self.height = height
+        self.ctx = ctx or TransformContext(self.cfg, device)
+        self.source = entropy.InflateSource()
+        self.gops_per_batch = gops_per_batch
+        self._coeffs_per_gop = width * height * self.cfg.gop_size
+
+    def feed(self, data: bytes) -> None:
+        self.source.feed(data)
+
+    def feed_eof(self) -> None:
+        self.source.feed_eof()
+
+    def try_decode(self) -> np.ndarray | None:
+        """Decode up to gops_per_batch buffered GOPs -> (T, H, W) uint8, or
+        None when not one whole GOP is buffered yet."""
+        pending = []
+        for _ in range(self.gops_per_batch):
+            planar = self.source.try_read_planar4(self._coeffs_per_gop)
+            if planar is None:
+                break
+            pending.append(_to_host_async(_dispatch_planar4(
+                planar, self.ctx, self.height, self.width)))
+        if not pending:
+            return None
+        for _, done in pending:
+            if done is not None:
+                done.synchronize()
+        return np.concatenate([host.numpy() for host, _ in pending])
+
+
 def decode_video(
     data: bytes,
     width: int,
@@ -92,6 +145,7 @@ def decode_video(
     device=None,
     positions: list[int] | None = None,
     sync_offsets: list[int] | None = None,
+    index_end: int | None = None,
 ) -> np.ndarray:
     """One-call decode of a complete bitstream -> (T, H, W) uint8, on
     ``device`` (or ``ctx.device``).
@@ -99,7 +153,8 @@ def decode_video(
     `frames` is truncated to a GOP multiple (Decoder.java:34-36).
     ``positions`` (per-GOP start bit offsets) and ``sync_offsets`` (per-GOP
     compressed byte offsets), both from the encoder's index, let every host
-    core work: see decode_frame_range.
+    core work; ``index_end`` is that index's last bit end: see
+    decode_frame_range.
     """
     cfg = cfg or CodecConfig()
     t = frames - frames % cfg.gop_size
@@ -107,7 +162,7 @@ def decode_video(
         return np.empty((0, height, width), np.uint8)
     return decode_frame_range(
         data, width, height, 0, t, cfg, ctx, device, positions=positions,
-        sync_offsets=sync_offsets,
+        sync_offsets=sync_offsets, index_end=index_end,
     )
 
 
@@ -122,6 +177,7 @@ def decode_frame_range(
     device=None,
     positions: list[int] | None = None,
     sync_offsets: list[int] | None = None,
+    index_end: int | None = None,
 ) -> np.ndarray:
     """Random-access decode of the half-open frame range [start, stop).
 
@@ -129,6 +185,12 @@ def decode_frame_range(
     inverse transform.  The skipped prefix costs one inflate pass plus,
     without ``positions``, a serial boundary scan (eg_scan).  With
     ``sync_offsets`` the inflate itself runs GOP-parallel.
+
+    ``index_end``, the last GOP bit end of the index that gave
+    ``positions``, is held against the inflated payload: an index that
+    ends past the payload's last bit belongs to another stream, so its
+    positions are dropped and the GOP boundaries are scanned instead (the
+    JAX package trusts any index of the right GOP count).
 
     Returns (stop - start, H, W) pixels identical to the same slice of
     decode_video's output; raises EOFError when the stream ends before
@@ -151,6 +213,8 @@ def decode_frame_range(
     except zlib.error as e:
         raise ValueError(f"corrupt bitstream: {e}") from e
     payload = np.frombuffer(raw, np.uint8)
+    if index_end is not None and index_end > 8 * payload.size:
+        positions = None  # a stale index: scan instead
     if positions is not None:
         if len(positions) < g1:
             raise ValueError(f"index has {len(positions)} positions, need {g1}")
@@ -194,3 +258,36 @@ def decode_frame_range(
     # Copy the trimmed slice: a view would pin up to gop_size-1 hidden
     # frames per end alive and alias them under caller writes.
     return np.ascontiguousarray(out[lo:hi])
+
+
+def decode_stream(
+    chunks: Iterable[bytes],
+    width: int,
+    height: int,
+    frames: int,
+    cfg: CodecConfig | None = None,
+    ctx: TransformContext | None = None,
+    device=None,
+) -> Iterator[np.ndarray]:
+    """Generator: inflate+decode an iterable of compressed chunks into frame
+    batches on ``device`` (or ``ctx.device``), stopping after `frames`
+    frames (GOP-truncated)."""
+    cfg = cfg or CodecConfig()
+    t = frames - frames % cfg.gop_size
+    dec = StreamingDecoder(width, height, cfg, ctx, device=device)
+    emitted = 0
+    it = iter(chunks)
+    exhausted = False
+    while emitted < t:
+        batch = dec.try_decode()
+        if batch is None:
+            if exhausted:
+                raise EOFError("bitstream too short for requested frame count")
+            try:
+                dec.feed(next(it))
+            except StopIteration:
+                dec.feed_eof()
+                exhausted = True
+            continue
+        emitted += batch.shape[0]
+        yield batch

@@ -15,11 +15,13 @@ from __future__ import annotations
 
 import collections
 from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Iterable, Iterator
 
 import numpy as np
 import torch
 
 from ..config import CodecConfig
+from ..profiling import StageTimer
 from . import entropy
 from .transform import EncodedGOP, TransformContext, encode_step, to_device
 
@@ -66,6 +68,11 @@ class StreamingEncoder:
         self.device = self.ctx.device
         self.sink = entropy.make_sink(self.cfg)
         self.sink.carry_code, self.sink.carry_bits = carry
+        #: frames pushed so far (GOP multiples); complete once finish()
+        #: returns, and what a container's member header records.
+        self.frames_encoded = 0
+        #: per-stage wall time and bytes (``encode --stats``)
+        self.timer = StageTimer()
         # Single-thread drainer: serializes sink access and keeps output order
         # while overlapping readback/DEFLATE with device compute.
         self._drainer = ThreadPoolExecutor(max_workers=1)
@@ -92,11 +99,13 @@ class StreamingEncoder:
             return total_bits, gop.packed[: total_bits // 8 + 1].numpy()
         with torch.cuda.stream(self._copy_stream):
             self._copy_stream.wait_event(done)
-            total_bits = int(gop.total_bits)  # synchronizes the copy stream
+            with self.timer.stage("device_wait"):
+                total_bits = int(gop.total_bits)  # synchronizes the copy stream
             nbytes = total_bits // 8 + 1
-            host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
-            host.copy_(gop.packed[:nbytes], non_blocking=True)
-            self._copy_stream.synchronize()
+            with self.timer.stage("d2h", nbytes):
+                host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+                host.copy_(gop.packed[:nbytes], non_blocking=True)
+                self._copy_stream.synchronize()
         return total_bits, host.numpy()
 
     def _drain_gop(self, gop: EncodedGOP, done) -> bytes:
@@ -111,8 +120,9 @@ class StreamingEncoder:
         self.gop_bit_ends.append(self._abs_end)
         # Per-GOP sync boundary: the parallel sink resets its window here so
         # decode can inflate GOPs independently (the serial sink no-ops).
-        self.sink.gop_boundary()
-        return self.sink.push_packed(packed, total_bits)
+        with self.timer.stage("deflate", total_bits // 8):
+            self.sink.gop_boundary()
+            return self.sink.push_packed(packed, total_bits)
 
     def _collect(self, block: bool = False) -> bytes:
         out = []
@@ -139,8 +149,10 @@ class StreamingEncoder:
         if frames.shape[1:] != (self.height, self.width):
             raise ValueError("frame geometry mismatch")
         for i in range(0, t, gop_size):
-            gop = encode_step(to_device(frames[i : i + gop_size], self.device),
-                              self.ctx, *self._carry)
+            raw = frames[i : i + gop_size]
+            with self.timer.stage("dispatch", raw.nbytes):
+                gop = encode_step(to_device(raw, self.device), self.ctx,
+                                  *self._carry)
             self._carry = (gop.carry_code, gop.carry_bits)
             done = None
             if self._copy_stream is not None:
@@ -150,6 +162,7 @@ class StreamingEncoder:
             # Backpressure: bound in-flight device buffers / host memory.
             if len(self._out) > _MAX_INFLIGHT:
                 self._out[0].result()
+        self.frames_encoded += t
         return self._collect()
 
     def finish(self) -> bytes:
@@ -183,3 +196,20 @@ def encode_video(
     t = frames.shape[0] - frames.shape[0] % cfg.gop_size
     enc = StreamingEncoder(frames.shape[2], frames.shape[1], cfg, ctx, device)
     return enc.push(frames[:t]) + enc.finish()
+
+
+def encode_stream(
+    batches: Iterable[np.ndarray],
+    width: int,
+    height: int,
+    cfg: CodecConfig | None = None,
+    ctx: TransformContext | None = None,
+    device=None,
+) -> Iterator[bytes]:
+    """Generator: encode an iterable of frame batches (each a GOP multiple)
+    into stream chunks on ``device`` (or ``ctx.device``); the chunks
+    concatenate to encode_video's stream of the same frames."""
+    enc = StreamingEncoder(width, height, cfg, ctx, device)
+    for batch in batches:
+        yield enc.push(batch)
+    yield enc.finish()

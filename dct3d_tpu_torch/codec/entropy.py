@@ -9,7 +9,10 @@ exists only because importing the JAX package loads jax.
   * the C decoders: ``eg_scan`` for GOP boundaries and the fused
     decode-to-nibble-plane ``eg_decode_planar4``;
   * ``parallel_chunks``, which decodes GOPs on a thread pool, from known
-    start positions (a stream index) or behind a serial boundary scan.
+    start positions (a stream index) or behind a serial boundary scan;
+  * ``InflateSource``, the streaming inflate with a bit cursor behind
+    ``StreamingDecoder`` (its planar4 reader only: the port decodes
+    through the nibble plane).
 
 Not copied yet: the speculative parallel scan and the fused speculative
 decode (``dct3d_tpu.codec.entropy.speculative_*``).  Without positions the
@@ -123,6 +126,63 @@ def parallel_chunks(payload, values_per_chunk: int, n_chunks: int,
             for k in range(c, min(c + workers + 1, n_chunks)):
                 ensure(k)
             yield futs.pop(c).result()
+
+
+class InflateSource:
+    """Streaming inflate + Exp-Golomb decode with explicit bit cursor.
+
+    Replaces the reference decoder's triple buffer-compaction loop
+    (decoder.c:210-243) with a single growing byte buffer and a bit cursor;
+    consumed whole bytes are dropped lazily.
+    """
+
+    def __init__(self) -> None:
+        self._z = zlib.decompressobj()
+        self._buf = bytearray()
+        self._start = 0  # consumed-bytes offset (lazy compaction)
+        self._bitpos = 0  # bit cursor within the byte at _start
+        self._eof = False
+
+    def feed(self, data: bytes) -> None:
+        if data:
+            try:
+                self._buf += self._z.decompress(data)
+            except zlib.error as e:
+                raise ValueError(f"corrupt bitstream: {e}") from e
+
+    def feed_eof(self) -> None:
+        if not self._eof:
+            try:
+                self._buf += self._z.flush()
+            except zlib.error as e:
+                raise ValueError(f"corrupt bitstream: {e}") from e
+            self._eof = True
+
+    def _window(self) -> np.ndarray:
+        # Zero-copy view of the unconsumed bytes (the view is dropped before
+        # feed() can resize the bytearray again).
+        return np.frombuffer(self._buf, dtype=np.uint8)[self._start :]
+
+    def _read(self, decoder, n: int):
+        try:
+            *result, pos = decoder(self._window(), n, self._bitpos)
+        except EOFError:
+            return None
+        self._consume(pos)
+        return result[0] if len(result) == 1 else tuple(result)
+
+    def try_read_planar4(self, n: int):
+        """Decode n values into the packed-nibble planar format, or None."""
+        return self._read(decode_values_planar4, n)
+
+    def _consume(self, pos: int) -> None:
+        self._start += pos // 8
+        self._bitpos = pos % 8
+        # Amortized compaction: one memmove when over half is consumed,
+        # keeping long-stream decode linear (not O(n^2) in memcpy).
+        if self._start > 65536 and self._start * 2 > len(self._buf):
+            del self._buf[: self._start]
+            self._start = 0
 
 
 # ----------------------------------------------------------------------------

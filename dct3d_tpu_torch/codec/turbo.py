@@ -27,7 +27,8 @@ when cfg.turbo_codec == "zstd" and the zstandard module imports, else zlib
 at cfg.zlib_level; decode sniffs each stream's magic.
 
 Not ported yet (ROADMAP Queue 1): the sharded encoder and decoder, the RGB
-functions, checkpointing, and the CLI flags.
+functions (only ``is_turbo_rgb_container`` is here, so that decode can
+name such a container) and checkpointing.
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ import torch
 from ..config import CodecConfig
 from ..ops import exceptions, relayout
 from ..parallel.multihost import (
-    MEMBER_INDEX, MEMBER_TEMPORAL, _member, split_members,
+    MEMBER_BLUE, MEMBER_GREEN, MEMBER_INDEX, MEMBER_RED, MEMBER_TEMPORAL,
+    _member, split_members,
 )
 from . import entropy
 from .decoder import _dispatch_planar4, _to_host_async, decode_video
@@ -64,6 +66,9 @@ except ImportError:  # pragma: no cover
 _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
 
 MEMBER_TURBO = 5
+#: turbo RGB channel members (red, green, blue): written by the JAX
+#: package's encode_turbo_rgb_video, not decoded by the port yet
+MEMBER_TURBO_RGB = (6, 7, 8)
 
 #: Per-GOP escape hatch for content the nibble wire degenerates on
 #: (near-lossless quants flood the exception streams).  When a GOP's
@@ -445,6 +450,23 @@ def is_turbo_container(members: Iterable[tuple[int, bytes, int]]) -> bool:
     return MEMBER_TURBO in types and types <= {
         MEMBER_TURBO, MEMBER_TEMPORAL, MEMBER_INDEX
     }
+
+
+def is_turbo_rgb_container(members: Iterable[tuple[int, bytes, int]]) -> bool:
+    """Like is_turbo_container, channel members may interleave per-GOP
+    RGB-channel fallback types (1/2/3).  A container where EVERY GOP of
+    every channel fell back carries only channel types — it is a plain RGB
+    container ONLY in the one-member-per-channel shape decode_rgb_video
+    reads; with several members per channel it must route here (the
+    per-channel member walk reads both types)."""
+    members = list(members)
+    types = {m[2] for m in members}
+    channel = {MEMBER_RED, MEMBER_GREEN, MEMBER_BLUE}
+    if not types or not types <= set(MEMBER_TURBO_RGB) | channel:
+        return False
+    if types & set(MEMBER_TURBO_RGB):
+        return True
+    return sum(1 for m in members if m[2] in channel) > 3
 
 
 def _pool_size(n_members: int, inflate_workers: int | None) -> int:

@@ -1,5 +1,4 @@
 """Pad-and-crop policy for non-multiple-of-block geometry (copy of
-``padded_geometry``, ``pad_frames`` and ``crop_frames`` of
 ``dct3d_tpu.io.pad``; tests/test_torch_host.py pins the copy to the
 original).
 
@@ -36,3 +35,31 @@ def pad_frames(frames: np.ndarray, block_w: int, block_h: int) -> np.ndarray:
 def crop_frames(frames: np.ndarray, width: int, height: int) -> np.ndarray:
     """Crop decoded (T, H', W'[, C]) frames back to the original geometry."""
     return frames[:, :height, :width]
+
+
+def padded_stream(inner, block_w: int, block_h: int):
+    """Wrap a StreamFrames so each batch is edge-padded as it flows
+    through: `encode - ... --pad` keeps the pipe path's constant-RSS
+    contract (pad is per-frame; nothing about it needs the whole footage
+    resident).  Returns a StreamFrames subclass instance, so
+    cli._frame_batches routes it unchanged; it reads from the inner
+    stream at the ORIGINAL geometry and presents the padded one."""
+    from .rawvideo import StreamFrames
+
+    class _Padded(StreamFrames):
+        def __init__(self):
+            pw, ph = padded_geometry(
+                inner.width, inner.height, block_w, block_h
+            )
+            super().__init__(inner.stream, pw, ph, inner.channels)
+
+        def read_all(self) -> np.ndarray:
+            return pad_frames(inner.read_all(), block_w, block_h)
+
+        def iter_batches(self, batch_frames, max_frames=None, align=None,
+                         start=0):
+            for b in inner.iter_batches(batch_frames, max_frames,
+                                        align=align, start=start):
+                yield pad_frames(b, block_w, block_h)
+
+    return _Padded()

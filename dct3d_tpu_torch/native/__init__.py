@@ -2,8 +2,9 @@
 
 ``dct3d_tpu/native/expgolomb.c`` imports nothing, so the port compiles that
 file by its path (importing the ``dct3d_tpu`` package would load jax) with
-the system C compiler into ``native/_build/`` and binds the two functions
-the slice calls through ctypes, with the argtypes of
+the system C compiler into ``native/_build/`` and binds the three functions
+the port calls (the two entropy decoders and the PNG unfilter) through
+ctypes, with the argtypes of
 ``dct3d_tpu.native.load``.  There is no NumPy fallback: the host decode
 path needs the library, and a missing compiler raises.
 """
@@ -68,6 +69,14 @@ def load() -> ctypes.CDLL:
                 ctypes.c_uint64,  # nbits_avail
                 ctypes.c_uint64,  # bitpos
                 ctypes.c_size_t,  # n
+            ]
+            lib.png_unfilter.restype = ctypes.c_int
+            lib.png_unfilter.argtypes = [
+                ctypes.c_void_p,  # filtered scanlines, h * (stride + 1)
+                ctypes.c_size_t,  # h
+                ctypes.c_size_t,  # stride
+                ctypes.c_int,  # bytes per pixel
+                ctypes.c_void_p,  # out, h * stride
             ]
             _lib = lib
     return _lib

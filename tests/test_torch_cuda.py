@@ -15,8 +15,8 @@ import pytest
 import torch
 
 from dct3d_tpu_torch import (
-    CodecConfig, TransformContext, decode_turbo_container, decode_video,
-    encode_turbo_video, encode_video, kernels,
+    CodecConfig, StreamingEncoder, TransformContext, decode_turbo_container,
+    decode_video, encode_turbo_video, encode_video, kernels,
 )
 from dct3d_tpu_torch.codec import entropy, framing, transform
 from dct3d_tpu_torch.ops import (
@@ -375,3 +375,51 @@ def test_turbo_on_card_equals_cpu(dev):
     assert data == encode_turbo_video(clip, device="cpu")
     ref = decode_video(encode_video(clip, device=dev), 72, 48, 24, device=dev)
     assert np.array_equal(out, ref)
+
+
+def test_cli_round_trip_on_card_equals_cpu(dev, tmp_path):
+    """`python -m dct3d_tpu_torch encode/decode` with default flags on the
+    card: the indexed container equals the --device cpu one byte for byte,
+    decode needs no frame count, pixels within 1 LSB of the CPU's on < 1%,
+    and the main path's kernels launched."""
+    from dct3d_tpu_torch import cli
+
+    clip = synthetic_video(24, 48, 72, seed=8)
+    src = str(tmp_path / "src.raw")
+    clip.tofile(src)
+    out = {}
+    for d in ("cuda", "cpu"):
+        kernels.LAUNCHES.clear()
+        enc, dec = str(tmp_path / f"{d}.d3v"), str(tmp_path / f"{d}.raw")
+        assert cli.main(["encode", src, enc, "72", "48", "--device", d]) == 0
+        assert cli.main(["decode", enc, dec, "72", "48", "--device", d]) == 0
+        out[d] = (open(enc, "rb").read(), np.fromfile(dec, np.uint8), dict(kernels.LAUNCHES))
+    assert out["cuda"][0] == out["cpu"][0] and out["cuda"][0][:4] == b"D3MH"
+    assert all(out["cuda"][2].get(k, 0) > 0 for k in (
+        "frames_to_cubes", "group_bits", "group_pack_values", "splice", "cubes_to_frames"))
+    assert not any(out["cpu"][2].values())
+    d = np.abs(out["cuda"][1].astype(np.int16) - out["cpu"][1])
+    assert out["cuda"][1].size == clip.size and d.max() <= 1 and (d > 0).mean() < 0.01
+
+
+def test_two_members_decoded_at_once_on_card(dev):
+    """decode_multihost_container decodes the members of a two-member
+    container on two threads that share one context on the card: the
+    pixels equal decoding the members one by one."""
+    from dct3d_tpu_torch.parallel import multihost
+
+    ctx = TransformContext(CodecConfig(deflate_workers=2), dev)
+    parts = []
+    for seed in (8, 9):
+        clip = synthetic_video(24, 48, 72, seed=seed)
+        enc = StreamingEncoder(72, 48, ctx.cfg, ctx)
+        stream = enc.push(clip) + enc.finish()
+        parts.append(multihost._member(stream, 24)
+                     + multihost.make_index_member(enc.gop_bit_ends, enc.gop_sync_offsets))
+    data = b"".join(parts)
+    together = multihost.decode_multihost_container(data, 72, 48, workers=2, ctx=ctx)
+    one_by_one = np.concatenate([multihost.decode_multihost_container(p, 72, 48, ctx=ctx)
+                                 for p in parts])
+    np.testing.assert_array_equal(together, one_by_one)
+    np.testing.assert_array_equal(
+        together, multihost.decode_multihost_container(data, 72, 48, workers=1, ctx=ctx))

@@ -7,7 +7,10 @@ its original, and check that the port never imports jax.
 
 import ast
 import dataclasses
+import io
+import json
 import os
+import struct
 import subprocess
 import sys
 
@@ -18,18 +21,25 @@ import torch
 from conftest import synthetic_video
 from dct3d_tpu import config as j_config
 from dct3d_tpu import metrics as j_metrics
+from dct3d_tpu import profiling as j_profiling
 from dct3d_tpu.codec import entropy as j_entropy
 from dct3d_tpu.codec import transform as j_transform
 from dct3d_tpu.codec import turbo as j_turbo
 from dct3d_tpu.io import pad as j_pad
+from dct3d_tpu.io import png as j_png
+from dct3d_tpu.io import rawvideo as j_rawvideo
+from dct3d_tpu.io import render as j_render
+from dct3d_tpu.io import rgb as j_rgb
+from dct3d_tpu.io import synthetic as j_synthetic
+from dct3d_tpu.io import y4m as j_y4m
 from dct3d_tpu.ops import dct as j_dct
 from dct3d_tpu.ops import exceptions as j_exceptions
 from dct3d_tpu.ops import quant as j_quant
 from dct3d_tpu.ops import zigzag as j_zigzag
 from dct3d_tpu.parallel import multihost as j_multihost
-from dct3d_tpu_torch import config, metrics
+from dct3d_tpu_torch import config, metrics, profiling
 from dct3d_tpu_torch.codec import encoder, entropy, transform, turbo
-from dct3d_tpu_torch.io import pad
+from dct3d_tpu_torch.io import pad, png, rawvideo, render, rgb, synthetic, y4m
 from dct3d_tpu_torch.ops import dct, exceptions, quant, zigzag
 from dct3d_tpu_torch.parallel import multihost
 
@@ -223,6 +233,208 @@ def test_member_payload_roundtrip_equal(wire):
             np.testing.assert_array_equal(a, b)
 
 
+def test_index_helpers_equal():
+    """The index member, its parsers (whole, v1-only, torn), gop_positions,
+    container_kind, host_frame_span and _temporal_streams against the
+    originals."""
+    ends, syncs = [5, 123456789, 2**40], [2, 900, 70_000]
+    for s in (None, syncs, syncs[:2]):
+        assert multihost.make_index_member(ends, s) == j_multihost.make_index_member(ends, s)
+    for payload in (multihost.split_members(multihost.make_index_member(ends, syncs))[0][1],
+                    multihost.split_members(multihost.make_index_member(ends))[0][1],
+                    b"", b"\x03\x00", struct.pack("<I", 3) + b"\x00" * 20,
+                    struct.pack("<I", 0)):
+        assert multihost.parse_index(payload) == j_multihost.parse_index(payload)
+        assert multihost.parse_index_syncs(payload) == j_multihost.parse_index_syncs(payload)
+    for args in (([10, 20], 3, 8, 24), ([10, 20, 30], 3, 8, 24), ([10, 20, 30], 2, 8, 0),
+                 ([], 1, 8, 0), ([7, 9], 2, 4, 8)):
+        assert multihost.gop_positions(*args) == j_multihost.gop_positions(*args)
+    cfg, jcfg = config.CodecConfig(), j_config.CodecConfig()
+    for total, count in ((0, 1), (64, 3), (71, 4), (200, 7)):
+        for p in range(count):
+            assert multihost.host_frame_span(total, cfg, p, count) == \
+                j_multihost.host_frame_span(total, jcfg, p, count)
+    m, idx = multihost._member, multihost.make_index_member([9, 17], [2, 5])
+    for members in ([(8, b"a", 0), (0, idx[16:], 4), (16, b"b", 0)],
+                    [(8, b"r", 1), (8, b"g", 2), (8, b"b", 3)],
+                    [(8, b"r", 1), (0, b"", 4), (8, b"g", 2), (8, b"b", 3)],
+                    [(8, b"x", 5), (8, b"y", 0)], [(8, b"x", 9)], []):
+        assert multihost.container_kind(members) == j_multihost.container_kind(members)
+    for tagged in ([m(b"a", 8), idx, m(b"b", 16)], [idx, m(b"a", 8)]):
+        data = multihost.split_members(b"".join(tagged))
+        assert multihost._temporal_streams(data) == j_multihost._temporal_streams(data)
+    assert multihost.IndexInfo._fields == j_multihost.IndexInfo._fields
+    for bad in ([(8, b"x", 5), (8, b"y", 0)], [(0, idx[16:], 4)]):
+        for mod in (multihost, j_multihost):
+            with pytest.raises(ValueError):
+                mod._temporal_streams(bad)
+
+
+def test_is_turbo_rgb_container_equal():
+    assert turbo.MEMBER_TURBO_RGB == j_turbo.MEMBER_TURBO_RGB
+    for types in ([6, 7, 8], [6, 1, 7, 8], [1, 2, 3], [1, 1, 2, 2, 3, 3], [5, 0],
+                  [6, 7, 8, 4], [], [0], [6, 9]):
+        members = [(8, b"", t) for t in types]
+        assert turbo.is_turbo_rgb_container(members) == j_turbo.is_turbo_rgb_container(members)
+
+
+@pytest.mark.parametrize("chunk", [1, 97, 1 << 20])
+def test_inflate_source_equals_original(chunk):
+    """InflateSource fed in chunks: the same planar4 GOPs, the same
+    refusals while a GOP is not buffered, as the original's."""
+    clip = synthetic_video(24, 32, 40, seed=2)
+    data = encoder.encode_video(clip, device="cpu")
+    n = 32 * 40 * 8
+    ours, theirs = entropy.InflateSource(), j_entropy.InflateSource()
+    got, want = [], []
+    for i in range(0, len(data) + chunk, chunk):
+        part = data[i : i + chunk]
+        for src, out in ((ours, got), (theirs, want)):
+            if part:
+                src.feed(part)
+            else:
+                src.feed_eof()
+            while (r := src.try_read_planar4(n)) is not None:
+                out.append(r)
+        assert len(got) == len(want)
+    assert len(got) == 3
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    assert ours.try_read_planar4(n) is None
+    with pytest.raises(ValueError, match="corrupt"):
+        entropy.InflateSource().feed(b"\x78\xda garbage")
+
+
+def test_stage_timer_equals_original():
+    """The same stages give the same bytes, calls and keys; seconds are
+    wall time and only checked for presence."""
+    ours, theirs = profiling.StageTimer(), j_profiling.StageTimer()
+    for t in (ours, theirs):
+        for name, nbytes in (("dispatch", 100), ("deflate", 40), ("dispatch", 50), ("wait", 0)):
+            with t.stage(name, nbytes):
+                pass
+    a, b = ours.as_dict(), theirs.as_dict()
+    assert list(a) == list(b) == ["deflate", "dispatch", "wait"]
+    for k in a:
+        assert {f: a[k][f] for f in ("bytes", "calls")} == {f: b[k][f] for f in ("bytes", "calls")}
+        assert set(a[k]) == set(b[k])
+    assert json.loads(ours.report()).keys() == a.keys()
+
+
+def test_rawvideo_copy_equals_original(tmp_path):
+    clip = np.random.default_rng(6).integers(0, 256, (21, 8, 12), dtype=np.uint8)
+    p = str(tmp_path / "v.raw")
+    rawvideo.write_video(p, clip)
+    assert rawvideo.frame_count(p, 12, 8) == j_rawvideo.frame_count(p, 12, 8) == 21
+    for frames in (None, 5, 40):
+        np.testing.assert_array_equal(rawvideo.read_video(p, 12, 8, frames),
+                                      j_rawvideo.read_video(p, 12, 8, frames))
+    np.testing.assert_array_equal(rawvideo.read_video(p, 4, 4, channels=3),
+                                  j_rawvideo.read_video(p, 4, 4, channels=3))
+    for kw in ({}, {"align": 4}, {"max_frames": 13, "align": 4}, {"start": 4, "align": 2}):
+        a = list(rawvideo.iter_frame_batches(p, 12, 8, 8, **kw))
+        b = list(j_rawvideo.iter_frame_batches(p, 12, 8, 8, **kw))
+        assert [x.shape for x in a] == [y.shape for y in b]
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    raw = clip.tobytes() + b"\x01" * 50
+    for kw in ({"align": 4}, {"align": 4, "start": 4}, {"max_frames": 10, "align": 2, "start": 4}):
+        a = list(rawvideo.StreamFrames(io.BytesIO(raw), 12, 8).iter_batches(8, **kw))
+        b = list(j_rawvideo.StreamFrames(io.BytesIO(raw), 12, 8).iter_batches(8, **kw))
+        assert [x.shape for x in a] == [y.shape for y in b]
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(rawvideo.StreamFrames(io.BytesIO(raw), 12, 8).read_all(),
+                                  j_rawvideo.StreamFrames(io.BytesIO(raw), 12, 8).read_all())
+    # padded_stream: the same padded batches and geometry.
+    a = pad.padded_stream(rawvideo.StreamFrames(io.BytesIO(raw), 12, 8), 8, 8)
+    b = j_pad.padded_stream(j_rawvideo.StreamFrames(io.BytesIO(raw), 12, 8), 8, 8)
+    assert isinstance(a, rawvideo.StreamFrames) and (a.width, a.height) == (b.width, b.height)
+    for x, y in zip(a.iter_batches(8, align=4), b.iter_batches(8, align=4)):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("chroma", ["420jpeg", "422", "444", "mono"])
+def test_y4m_copy_equals_original(tmp_path, chroma):
+    from test_footage import _write_y4m
+
+    clip = synthetic_video(5, 16, 24, seed=8)
+    p = str(tmp_path / "v.y4m")
+    _write_y4m(p, clip, chroma)
+    assert y4m.probe_y4m(p) == j_y4m.probe_y4m(p)
+    for frames in (None, 3):
+        a, b = y4m.read_y4m(p, frames), j_y4m.read_y4m(p, frames)
+        np.testing.assert_array_equal(a[0], b[0])
+        assert a[1] == b[1]
+    if chroma == "mono":
+        with pytest.raises(ValueError, match="Cmono"):
+            y4m.read_y4m_rgb(p)
+    else:
+        np.testing.assert_array_equal(y4m.read_y4m_rgb(p)[0], j_y4m.read_y4m_rgb(p)[0])
+    rgb = np.random.default_rng(9).integers(0, 256, (2, 16, 24, 3), dtype=np.uint8)
+    for mod, name in ((y4m, "a"), (j_y4m, "b")):
+        mod.write_y4m(str(tmp_path / f"{name}.y4m"), clip, fps=25.0)
+        mod.write_y4m_rgb(str(tmp_path / f"{name}c.y4m"), rgb)
+    for x in ("", "c"):
+        assert (tmp_path / f"a{x}.y4m").read_bytes() == (tmp_path / f"b{x}.y4m").read_bytes()
+
+
+@pytest.mark.parametrize("color", ["gray", "rgb"])
+def test_png_copy_equals_original(tmp_path, color):
+    """Every scanline filter through the port's native unfilter, the
+    palette and alpha colour types, sequences and the gray conversion."""
+    from test_footage import _write_filtered_png
+
+    rng = np.random.default_rng(10)
+    img = rng.integers(0, 256, (12, 20) if color == "gray" else (12, 20, 3), dtype=np.uint8)
+    seq = tmp_path / "seq"
+    seq.mkdir()
+    for f in range(5):
+        p = str(seq / f"f{f}.png")
+        _write_filtered_png(p, img, f)
+        np.testing.assert_array_equal(png.read_png(p), j_png.read_png(p))
+        np.testing.assert_array_equal(png.read_png(p), img)
+    for gray in (True, False):
+        np.testing.assert_array_equal(png.read_png_sequence(str(seq), 3, gray),
+                                      j_png.read_png_sequence(str(seq), 3, gray))
+    assert png.list_sequence(str(seq / "*.png")) == j_png.list_sequence(str(seq / "*.png"))
+    with pytest.raises(ValueError, match="filter"):
+        png._unfilter(b"\x07" + bytes(20), 1, 20, 1)
+
+
+def test_synthetic_rgb_render_copies_equal_original(tmp_path):
+    kw = {"noise": 4.0, "seed": 3}
+    np.testing.assert_array_equal(synthetic.moving_gradient(4, 16, 24, **kw),
+                                  j_synthetic.moving_gradient(4, 16, 24, **kw))
+    np.testing.assert_array_equal(synthetic.moving_gradient(4, 16, 24, rgb=True),
+                                  j_synthetic.moving_gradient(4, 16, 24, rgb=True))
+    np.testing.assert_array_equal(synthetic.moving_blocks(4, 16, 24, 5),
+                                  j_synthetic.moving_blocks(4, 16, 24, 5))
+    for mod, name in ((synthetic, "a"), (j_synthetic, "b")):
+        shape = mod.capture(str(tmp_path / f"{name}.raw"), 4, 30, 21, kind="blocks", seed=2)
+        assert shape == (4, 32, 24)
+    assert (tmp_path / "a.raw").read_bytes() == (tmp_path / "b.raw").read_bytes()
+    clip = np.random.default_rng(11).integers(0, 256, (3, 8, 8, 3), dtype=np.uint8)
+    for a, b in zip(rgb.split_array(clip), j_rgb.split_array(clip)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(rgb.mix_array(*rgb.split_array(clip)), clip)
+    src = str(tmp_path / "c.rgb")
+    clip.tofile(src)
+    outs = rgb.split_file(src, str(tmp_path / "p"))
+    want = j_rgb.split_file(src, str(tmp_path / "q"))
+    for a, b in zip(outs, want):
+        assert open(a, "rb").read() == open(b, "rb").read()
+    rgb.mix_files(str(tmp_path / "p"), str(tmp_path / "m.rgb"))
+    assert (tmp_path / "m.rgb").read_bytes() == clip.tobytes()
+    gray = str(tmp_path / "a.raw")
+    assert render.video_stats(gray, 24, 32) == j_render.video_stats(gray, 24, 32)
+    a = render.render_frames(gray, 24, 32, str(tmp_path / "ra"), frames=[1, 9])
+    b = j_render.render_frames(gray, 24, 32, str(tmp_path / "rb"), frames=[1, 9])
+    assert [open(x, "rb").read() for x in a] == [open(x, "rb").read() for x in b]
+    assert [os.path.basename(x)[2:] for x in a] == [os.path.basename(x)[2:] for x in b]
+
+
 def _port_modules():
     for dirpath, _, files in os.walk(PKG):
         for f in sorted(files):
@@ -250,8 +462,35 @@ def test_port_imports_no_jax_subprocess():
     assert {"dct3d_tpu_torch.parallel", "dct3d_tpu_torch.parallel.multihost",
             "dct3d_tpu_torch.codec.turbo", "dct3d_tpu_torch.ops.exc_pack",
             "dct3d_tpu_torch.ops.exceptions", "dct3d_tpu_torch.io",
-            "dct3d_tpu_torch.io.pad"} <= set(mods)
-    assert len(mods) >= 23
+            "dct3d_tpu_torch.io.pad", "dct3d_tpu_torch.cli",
+            "dct3d_tpu_torch.__main__", "dct3d_tpu_torch.codec.auto",
+            "dct3d_tpu_torch.profiling", "dct3d_tpu_torch.io.rawvideo",
+            "dct3d_tpu_torch.io.png", "dct3d_tpu_torch.io.y4m",
+            "dct3d_tpu_torch.io.synthetic", "dct3d_tpu_torch.io.rgb",
+            "dct3d_tpu_torch.io.render"} <= set(mods)
+    assert len(mods) >= 33
+
+
+def test_cli_runs_without_jax_subprocess(tmp_path):
+    """``python -m dct3d_tpu_torch`` encodes, inspects and decodes on the
+    CPU in a process that never loads jax or the JAX package."""
+    src = str(tmp_path / "src.raw")
+    synthetic_video(8, 16, 16, seed=1).tofile(src)
+    code = (
+        "import sys\n"
+        "from dct3d_tpu_torch.cli import main\n"
+        f"assert main(['encode', {src!r}, {src + '.d3'!r}, '16', '16', '--device', 'cpu']) == 0\n"
+        f"assert main(['info', {src + '.d3'!r}]) == 0\n"
+        f"assert main(['decode', {src + '.d3'!r}, {src + '.out'!r}, '16', '16',"
+        " '--device', 'cpu']) == 0\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dct3d_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert os.path.getsize(src + ".out") == 8 * 16 * 16
 
 
 @pytest.mark.parametrize("path", sorted(_port_modules()) + [os.path.join(ROOT, "chip_smoke.py")],
