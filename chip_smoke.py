@@ -50,7 +50,25 @@ and decode of the bench clip (1920x1080, 64 frames) at 8x8x8 cubes, and the
               and device-only;
   8. timing   encode and decode fps of both 8x8x8 profiles, end to end and
               device-only;
-  9. cli      the port's command line (dct3d_tpu_torch.cli.main), file to
+  9. delta    transport_delta under bench.py's speed profile: the plain
+              encode's stream, bit ends and sync offsets, the plain pixels,
+              the JAX turbo digest; encode fps with and without the delta,
+              alternated; the device's rebuild scan per GOP;
+ 10. host_encode  StreamingEncoder(device_pack=False), serial sink: the
+              device-packed serial stream, no bit pack kernel; fps;
+ 11. speculative  decode_video and decode_frame_range 20:45 with no index
+              (the fused speculative decode, the prefix skip): the indexed
+              pixels; speculative_planar4_chunks on the 1080p payload equal
+              to the serial decoder's tuples; decode and host entropy fps
+              without and with the index;
+ 12. rgb      encode_rgb_video(index=True) and encode_turbo_rgb_video of a
+              1920x1080x16 RGB clip: content against the JAX package's
+              (constants below), decodes equal to the per-channel decodes,
+              ranges to the slices; fps;
+ 13. checkpoint  CheckpointingEncoder, reference (index on) and turbo: stop
+              after 3 GOPs, tear the last member, resume; the file equals
+              an uninterrupted run's and decodes to the plain pixels;
+ 14. cli      the port's command line (dct3d_tpu_torch.cli.main), file to
               file in a temporary directory, on the bench clip written raw:
               the default encode (an indexed container: its payload the
               parallel-sink stream of phase 4, its index that encode's bit
@@ -60,12 +78,16 @@ and decode of the bench clip (1920x1080, 64 frames) at 8x8x8 cubes, and the
               --turbo --turbo-codec zlib (the JAX turbo digest); --block 4
               --pad on the portrait clip, decoded with --crop to phase 7's
               pixels; `python -m dct3d_tpu_torch devices` in a subprocess;
-              encode and decode fps, file to file.
+              --transport-delta (the default container); --rgb and --rgb
+              --turbo, decoded with no flags and with --range (the JAX
+              content, phase 12's pixels); --checkpoint-every 2 run twice,
+              then decoded from the .meta sidecar; encode and decode fps,
+              file to file.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after; every kernel of the path must have launched, and on the 4x4x4
-paths K1 and K4 (8x8x8 cubes only) must not have.  The CLI paths of phase 9
-each do the same.
+paths K1 and K4 (8x8x8 cubes only) must not have.  Phases 9-13 and the
+CLI paths of phase 14 each do the same.
 
 Each phase prints one JSON line.  Any failed check raises, and the script
 exits non-zero without printing a result; with no card it fails in phase 1.
@@ -94,7 +116,7 @@ import torch
 
 import dct3d_tpu_torch as port
 from dct3d_tpu_torch import cli, kernels
-from dct3d_tpu_torch.codec import decoder, entropy, framing, transform, turbo
+from dct3d_tpu_torch.codec import decoder, encoder, entropy, framing, transform, turbo
 from dct3d_tpu_torch.ops import (
     bitpack, dct, exc_pack, exceptions, expgolomb, group_pack, relayout, splice,
 )
@@ -153,6 +175,21 @@ JAX_BLOCK_CONSTANTS = {
 }
 
 
+# The rgb phase's clip: RGB_T frames of interleaved 1920x1080 RGB (99.5 MB).
+RGB_T = 16
+# The JAX package's RGB containers of rgb_clip(): encode_rgb_video(index=True)
+# under RGB_CFG and encode_turbo_rgb_video under TURBO_CFG, each container's
+# container_digest and bits per (RGB) pixel, printed by
+#   JAX_PLATFORMS=cpu python tools/jax_rgb_constants.py
+RGB_CFG = {"deflate_workers": -1}
+JAX_RGB_CONSTANTS = {
+    "rgb": {"bpp": 1.7330533854166668,
+            "digest": "9536235582fc020cd97e9d3cd221ab7512d3aaee41d3732f310321588c564299"},
+    "turbo_rgb": {"bpp": 1.730354938271605,
+                  "digest": "42a72c17717a16cedcad8b47b3b47792de48908d2e2c0df2bb77ccf98d624535"},
+}
+
+
 def synthetic_clip(t: int, h: int, w: int) -> np.ndarray:
     """Moving gradient + noise: the bench clip (copied from bench.py:56-65)."""
     rng = np.random.default_rng(12345)
@@ -163,6 +200,17 @@ def synthetic_clip(t: int, h: int, w: int) -> np.ndarray:
         frames[k] = ((x[None, :] + y + k) & 0xFF).astype(np.uint8)
     noise = (rng.integers(0, 16, size=frames.shape, dtype=np.uint8)).astype(np.uint8)
     return frames ^ noise
+
+
+def rgb_clip() -> np.ndarray:
+    """RGB_T frames of the bench clip's content, one channel each offset by
+    85 levels and XORed with noise of its own from a second seed."""
+    base = synthetic_clip(RGB_T, H, W)
+    rng = np.random.default_rng(777)
+    out = np.empty((RGB_T, H, W, 3), np.uint8)
+    for c in range(3):
+        out[..., c] = (base + np.uint8(85 * c)) ^ rng.integers(0, 8, base.shape, dtype=np.uint8)
+    return out
 
 
 def portrait_clip() -> np.ndarray:
@@ -190,6 +238,22 @@ def emit(**fields) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+REF8 = ("frames_to_cubes", "group_bits", "group_pack_values", "splice", "cubes_to_frames")
+TURBO8 = ("frames_to_cubes", "compact_groups", "plane_to_wire", "wire_to_plane",
+          "cubes_to_frames")
+
+
+def path_launches(name: str, want: tuple, absent: tuple = ()) -> dict:
+    """The launch counts since the last clear: every kernel of `want` must
+    have launched on the path, and none of `absent`."""
+    got = dict(kernels.LAUNCHES)
+    for k in want:
+        check(got.get(k, 0) > 0, f"kernel {k} never ran on the {name} path")
+    for k in absent:
+        check(not got.get(k), f"kernel {k} ran on the {name} path")
+    return got
 
 
 def median_ms(fn, reps: int = 15) -> float:
@@ -540,7 +604,7 @@ def container_digest(data: bytes) -> str:
     h = hashlib.sha256()
     for t, payload, mtype in multihost.split_members(data):
         h.update(struct.pack("<II", t, mtype))
-        if mtype == turbo.MEMBER_TURBO:
+        if mtype in (turbo.MEMBER_TURBO, *turbo.MEMBER_TURBO_RGB):
             o = 16
             for n in struct.unpack_from("<IIII", payload, 0):
                 h.update(turbo._decompress(payload[o : o + n]))
@@ -784,12 +848,8 @@ def phase_blocks(clip: np.ndarray, smi: str) -> tuple[dict[str, int], np.ndarray
     ctx = port.TransformContext(cfg, "cuda")
 
     def launched(path: str, want: tuple, absent: tuple) -> dict:
-        got = dict(kernels.LAUNCHES)
-        for k in want:
-            check(got.get(k, 0) > 0, f"kernel {k} never ran on the 4x4x4 {path} path")
-        for k in absent + ("frames_to_cubes", "cubes_to_frames"):
-            check(not got.get(k), f"kernel {k} ran on the 4x4x4 {path} path")
-        return got
+        return path_launches(f"4x4x4 {path}", want,
+                             absent + ("frames_to_cubes", "cubes_to_frames"))
 
     # 1. The bench clip.
     kernels.LAUNCHES.clear()
@@ -897,6 +957,224 @@ def phase_blocks(clip: np.ndarray, smi: str) -> tuple[dict[str, int], np.ndarray
     return k5_launches, cropped
 
 
+def phase_delta(clip: np.ndarray, lib: dict, smi: str) -> None:
+    """transport_delta under bench.py's speed profile (bench.py:76-77):
+    the stream, bit ends and sync offsets of the plain parallel-sink encode,
+    the plain pixels, and the turbo container's content; encode fps with
+    and without the delta, alternated in this run; the device's rebuild
+    scan and delta emission per GOP, and the host's subtract."""
+    cfg = port.CodecConfig(deflate_workers=-1, pack_bits_per_value=4, transport_delta=True)
+    ctx = port.TransformContext(cfg, "cuda")
+    tcfg = port.CodecConfig(**TURBO_CFG, transport_delta=True)
+    tctx = port.TransformContext(tcfg, "cuda")
+    kernels.LAUNCHES.clear()
+    data, ends, syncs = encode_clip(clip, cfg, ctx)
+    out = port.decode_video(data, W, H, T, cfg, ctx, positions=[0] + ends[:-1],
+                            sync_offsets=syncs)
+    tdata = port.encode_turbo_video(clip, tcfg, tctx)
+    tout = port.decode_turbo_container(tdata, W, H, tcfg, tctx)
+    launches = path_launches("delta", REF8 + TURBO8)
+    check(data == lib["par"] and ends == lib["ends"] and syncs == lib["syncs"],
+          "the delta encode's stream, bit ends or syncs differ from the plain encode's")
+    check(np.array_equal(out, lib["out_par"]), "delta decode pixels differ from the plain decode")
+    check(container_digest(tdata) == JAX_TURBO_DIGEST,
+          "the delta turbo container differs from the JAX package's")
+    check(np.array_equal(tout, lib["out_par"]), "delta turbo pixels differ from the plain decode")
+    # Encode fps, plain and delta alternated, best of 3 each.
+    plain_cfg = port.CodecConfig(deflate_workers=-1)
+    plain_ctx = port.TransformContext(plain_cfg, "cuda")
+    times = {"plain": [], "delta": []}
+    for _ in range(3):
+        times["plain"].append(_timed(lambda: encode_clip(clip, plain_cfg, plain_ctx)))
+        times["delta"].append(_timed(lambda: encode_clip(clip, cfg, ctx)))
+    gop = torch.from_numpy(clip[:8]).to("cuda")
+    scan_ms = median_ms(lambda: transform._undelta_frames(gop, cfg))
+    pixels = torch.rand((W * H * 8 // 512, 512), device="cuda") * 255
+    emit_ms = (median_ms(lambda: transform._finish_frames(pixels, cfg, H, W))
+               - median_ms(lambda: transform._finish_frames(pixels, plain_cfg, H, W)))
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        encoder._deltas(clip[:8])
+        host.append(time.perf_counter() - t0)
+    emit(phase="delta", card=smi, launches=launches, stream_equals_plain=True,
+         pixels_equal_plain=True, turbo_digest_equals_jax=True, turbo_pixels_equal_plain=True,
+         encode_fps=T / min(times["plain"]), delta_encode_fps=T / min(times["delta"]),
+         delta_scan_us_per_gop=scan_ms * 1e3, delta_emit_us_per_gop=emit_ms * 1e3,
+         host_subtract_ms_per_gop=statistics.median(host) * 1e3)
+
+
+def phase_host_encode(clip: np.ndarray, lib: dict, smi: str) -> None:
+    """StreamingEncoder(device_pack=False), the serial sink: the device
+    quantizes (K1), the C encoder packs on the host; bytes equal the
+    device-packed serial stream; no bit pack kernel runs."""
+    cfg = port.CodecConfig()
+    ctx = port.TransformContext(cfg, "cuda")
+    kernels.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    enc = port.StreamingEncoder(W, H, cfg, ctx, device_pack=False)
+    data = enc.push(clip) + enc.finish()
+    dt = time.perf_counter() - t0
+    launches = path_launches("host encode", ("frames_to_cubes",),
+                             ("group_bits", "group_pack_values", "splice", "group_pack_codes"))
+    check(data == lib["ser"], "the host encode differs from the device-packed serial stream")
+    check(enc.gop_bit_ends == [] and enc.gop_sync_offsets is None,
+          "the host encode recorded bit ends or syncs (the JAX host path records none)")
+    emit(phase="host_encode", card=smi, launches=launches, bytes_equal_serial=True,
+         host_encode_fps=T / dt, runs=1)
+
+
+def phase_speculative(lib: dict, ctx, smi: str) -> None:
+    """The serial-sink stream decoded with no index: decode_video through
+    the fused speculative decode, decode_frame_range 20:45 through the
+    prefix skip; speculative_planar4_chunks on the 1080p payload equals the
+    serial decoder's tuples.  Decode fps without and with the index, and
+    the host entropy stage alone by route."""
+    ser, cfg = lib["ser"], ctx.cfg
+    cpg, n = W * H * 8, T // 8
+    positions = [0] + lib["ends"][:-1]
+    kernels.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = port.decode_video(ser, W, H, T, cfg, ctx)
+    first_s = time.perf_counter() - t0
+    rng = port.decode_frame_range(ser, W, H, 20, 45, cfg, ctx)
+    launches = path_launches("speculative", ("cubes_to_frames",))
+    check(np.array_equal(out, lib["out_ser"]), "the speculative decode differs from the indexed")
+    check(np.array_equal(rng, lib["out_ser"][20:45]),
+          "the speculative range decode differs from the slice")
+    payload = np.frombuffer(zlib.decompress(ser), np.uint8)
+    fused = entropy.speculative_planar4_chunks(payload, cpg, n)
+    check(fused is not None, "the fused speculative decode refused the 1080p payload")
+    pos = 0
+    for k, (plane, ei, ev, end) in enumerate(fused):
+        want = entropy.decode_values_planar4(payload, cpg, pos)
+        check(all(np.array_equal(a, b) for a, b in zip((plane, ei, ev), want[:3]))
+              and end == want[3], f"speculative chunk {k} differs from the serial decode")
+        pos = end
+    check(entropy.speculative_positions(payload, cpg, n) == positions,
+          "speculative_positions differ from the index")
+    plain_s = best_of_3(first_s, lambda: port.decode_video(ser, W, H, T, cfg, ctx))
+    index_s = min(_timed(lambda: port.decode_video(ser, W, H, T, cfg, ctx, positions=positions))
+                  for _ in range(3))
+
+    def entropy_only(pos):
+        return lambda: [None for _ in entropy.parallel_chunks(
+            payload, cpg, n, entropy.decode_values_planar4, positions=pos)]
+
+    spec_host = min(_timed(entropy_only(None)) for _ in range(3))
+    index_host = min(_timed(entropy_only(positions)) for _ in range(3))
+    emit(phase="speculative", card=smi, launches=launches, pixels_equal_indexed=True,
+         range_equals_slice=True, chunks_equal_serial=True, positions_equal_index=True,
+         decode_fps=T / plain_s, indexed_decode_fps=T / index_s,
+         entropy_fps=T / spec_host, indexed_entropy_fps=T / index_host)
+
+
+def phase_rgb(smi: str) -> tuple[np.ndarray, np.ndarray]:
+    """encode_rgb_video(index=True) and encode_turbo_rgb_video (zlib wire)
+    of rgb_clip(): content equal to the JAX package's (JAX_RGB_CONSTANTS);
+    the decodes equal the per-channel library decodes, the ranges the
+    slices, turbo-RGB pixels the RGB ones.  Returns the clip and its
+    decoded pixels."""
+    rgb = rgb_clip()
+    cfg = port.CodecConfig(**RGB_CFG)
+    ctx = port.TransformContext(cfg, "cuda")
+    tcfg = port.CodecConfig(**TURBO_CFG)
+    tctx = port.TransformContext(tcfg, "cuda")
+    kernels.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    box = port.encode_rgb_video(rgb, cfg, ctx, index=True)
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = port.decode_rgb_video(box, W, H, cfg, ctx)
+    dec_s = time.perf_counter() - t0
+    rng = port.decode_rgb_range(box, W, H, 5, 13, cfg, ctx)
+    launches = {"rgb": path_launches("rgb", REF8)}
+    kernels.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    tbox = port.encode_turbo_rgb_video(rgb, tcfg, tctx)
+    tenc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tout = port.decode_turbo_rgb_video(tbox, W, H, tcfg, tctx)
+    tdec_s = time.perf_counter() - t0
+    trng = port.decode_turbo_rgb_range(tbox, W, H, 5, 13, tcfg, tctx)
+    launches["turbo_rgb"] = path_launches("turbo rgb", TURBO8)
+    content = {}
+    for name, data in (("rgb", box), ("turbo_rgb", tbox)):
+        want = JAX_RGB_CONSTANTS[name]
+        bpp = len(data) * 8 / (W * H * RGB_T)
+        check(container_digest(data) == want["digest"],
+              f"{name}: the container's content differs from the JAX package's")
+        check(abs(bpp - want["bpp"]) <= 0.0005, f"{name}: bpp {bpp} vs JAX {want['bpp']}")
+        content[f"{name}_bpp"] = bpp
+    members = multihost.split_members(box)
+    check([m[2] for m in members] == [1, 4, 2, 4, 3, 4], "not three indexed channel members")
+    for c, k in enumerate((0, 2, 4)):
+        ends = multihost.parse_index(members[k + 1][1])
+        ch = port.decode_video(members[k][1], W, H, RGB_T, cfg, ctx, positions=[0] + ends[:-1],
+                               sync_offsets=multihost.parse_index_syncs(members[k + 1][1]))
+        check(np.array_equal(out[..., c], ch), f"channel {c} differs from its library decode")
+    check(np.array_equal(rng, out[5:13]), "decode_rgb_range differs from the slice")
+    check(np.array_equal(tout, out), "turbo-RGB pixels differ from the RGB decode")
+    check(np.array_equal(trng, out[5:13]), "decode_turbo_rgb_range differs from the slice")
+    enc_s = best_of_3(enc_s, lambda: port.encode_rgb_video(rgb, cfg, ctx, index=True))
+    dec_s = best_of_3(dec_s, lambda: port.decode_rgb_video(box, W, H, cfg, ctx))
+    emit(phase="rgb", card=smi, frames=RGB_T, launches=launches, **content,
+         content_equals_jax=True, pixels_equal_channel_decodes=True, ranges_equal_slices=True,
+         psnr_db=port.psnr(rgb, out), rgb_encode_fps=RGB_T / enc_s,
+         rgb_decode_fps=RGB_T / dec_s, turbo_rgb_encode_fps=RGB_T / tenc_s,
+         turbo_rgb_decode_fps=RGB_T / tdec_s)
+    return rgb, out
+
+
+def phase_checkpoint(clip: np.ndarray, lib: dict, smi: str) -> None:
+    """CheckpointingEncoder on the bench clip, reference (2 GOPs a member,
+    index on) and turbo (zlib wire): stop after 3 GOPs, tear the last
+    member, resume; the file equals an uninterrupted run's and decodes to
+    the plain pixels."""
+    report = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, cfg, kw in (
+                ("reference", port.CodecConfig(deflate_workers=-1), {"index": True}),
+                ("turbo", port.CodecConfig(**TURBO_CFG), {"turbo": True})):
+            ctx = port.TransformContext(cfg, "cuda")
+            whole, torn = os.path.join(d, f"{name}.whole"), os.path.join(d, f"{name}.torn")
+            kernels.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            with port.CheckpointingEncoder(whole, W, H, cfg, ctx, checkpoint_gops=2,
+                                           **kw) as enc:
+                enc.push(clip)
+            enc_s = time.perf_counter() - t0
+            with port.CheckpointingEncoder(torn, W, H, cfg, ctx, checkpoint_gops=2,
+                                           **kw) as enc:
+                enc.push(clip[:24])
+            size = os.path.getsize(torn)
+            os.truncate(torn, size - 100)  # tear the last member
+            frames_safe, _ = port.resume_info(torn)
+            with port.CheckpointingEncoder(torn, W, H, cfg, ctx, checkpoint_gops=2,
+                                           **kw) as enc:
+                check(enc.frames_done == frames_safe, "the resume point is not resume_info's")
+                enc.push(clip[enc.frames_done:])
+            with open(whole, "rb") as f:
+                data = f.read()
+            with open(torn, "rb") as f:
+                check(f.read() == data, f"{name}: the resumed file differs from the "
+                      "uninterrupted one")
+            if name == "turbo":
+                out = port.decode_turbo_container(data, W, H, cfg, ctx)
+            else:
+                out = multihost.decode_multihost_container(data, W, H, cfg, ctx=ctx)
+            check(np.array_equal(out, lib["out_ser"]),
+                  f"{name}: the checkpointed container decodes otherwise than the stream")
+            report[name] = {
+                "launches": path_launches(f"{name} checkpoint",
+                                          TURBO8 if name == "turbo" else REF8),
+                "resumed_at_frame": frames_safe, "members": len(multihost.split_members(data)),
+                "encode_fps": T / enc_s}
+    emit(phase="checkpoint", card=smi, resumed_equals_uninterrupted=True,
+         pixels_equal_plain=True, **report)
+
+
+
 def run_cli(*argv: str) -> str:
     """dct3d_tpu_torch.cli.main in this process; fails unless it exits 0.
     Returns what it printed on stdout."""
@@ -914,15 +1192,11 @@ def cli_path(name: str, want: tuple, argvs: list, absent: tuple = ()) -> dict:
     kernels.LAUNCHES.clear()
     for argv in argvs:
         run_cli(*argv)
-    got = dict(kernels.LAUNCHES)
-    for k in want:
-        check(got.get(k, 0) > 0, f"kernel {k} never ran on the CLI {name} path")
-    for k in absent:
-        check(not got.get(k), f"kernel {k} ran on the CLI {name} path")
-    return got
+    return path_launches(f"CLI {name}", want, absent)
 
 
-def phase_cli(clip: np.ndarray, lib: dict, portrait_cropped: np.ndarray, smi: str) -> None:
+def phase_cli(clip: np.ndarray, lib: dict, portrait_cropped: np.ndarray, rgb_lib: tuple,
+              smi: str) -> None:
     """The port's CLI, file to file in a temporary directory, on the bench
     clip written raw; each path with launch counts of its own:
 
@@ -936,11 +1210,15 @@ def phase_cli(clip: np.ndarray, lib: dict, portrait_cropped: np.ndarray, smi: st
          digest, the reference pixels;
       4. --block 4 --pad on the portrait clip, then decode --block 4 --crop:
          K5 and K3, phase 7's cropped pixels;
-      5. `python -m dct3d_tpu_torch devices` in a subprocess names the card.
+      5. `python -m dct3d_tpu_torch devices` in a subprocess names the card;
+      6. --transport-delta: the default container, byte for byte;
+      7. --rgb and --rgb --turbo --turbo-codec zlib on the rgb phase's clip,
+         each decoded with no flags and with --range 5:13: the JAX
+         package's content (JAX_RGB_CONSTANTS), the rgb phase's pixels;
+      8. --checkpoint-every 2 twice (the second run resumes at the end),
+         then a decode with no geometry, from the .meta sidecar.
 
     Then encode and decode fps, file to file, best of 3."""
-    ref8 = ("frames_to_cubes", "group_bits", "group_pack_values", "splice",
-            "cubes_to_frames")
     geo = (str(W), str(H))
     with tempfile.TemporaryDirectory() as d:
         src = os.path.join(d, "src.raw")
@@ -948,7 +1226,7 @@ def phase_cli(clip: np.ndarray, lib: dict, portrait_cropped: np.ndarray, smi: st
         box, dec = os.path.join(d, "box.d3v"), os.path.join(d, "dec.raw")
 
         # 1. The default container.
-        launches = {"default": cli_path("default", ref8, [
+        launches = {"default": cli_path("default", REF8, [
             ("encode", src, box, *geo), ("decode", box, dec, *geo),
             ("decode", box, os.path.join(d, "rng.raw"), *geo, "--range", "20:45")])}
         with open(box, "rb") as f:
@@ -994,7 +1272,7 @@ def phase_cli(clip: np.ndarray, lib: dict, portrait_cropped: np.ndarray, smi: st
 
         # 2. --parity --index: the raw serial-sink stream and its sidecar.
         par_file = os.path.join(d, "parity.bin")
-        launches["parity_index"] = cli_path("parity_index", ref8, [
+        launches["parity_index"] = cli_path("parity_index", REF8, [
             ("encode", src, par_file, *geo, "--parity", "--index"),
             ("decode", par_file, dec, *geo)])
         with open(par_file, "rb") as f:
@@ -1006,8 +1284,7 @@ def phase_cli(clip: np.ndarray, lib: dict, portrait_cropped: np.ndarray, smi: st
         # 3. Turbo, zlib wire.
         tbox = os.path.join(d, "box.d3t")
         launches["turbo"] = cli_path(
-            "turbo", ("frames_to_cubes", "compact_groups", "plane_to_wire", "wire_to_plane",
-                      "cubes_to_frames"),
+            "turbo", TURBO8,
             [("encode", src, tbox, *geo, "--turbo", "--turbo-codec", "zlib"),
              ("decode", tbox, dec, *geo),
              ("decode", tbox, os.path.join(d, "trng.raw"), *geo, "--range", "20:45")],
@@ -1040,12 +1317,55 @@ def phase_cli(clip: np.ndarray, lib: dict, portrait_cropped: np.ndarray, smi: st
         check(res.returncode == 0 and torch.cuda.get_device_name(0) in res.stdout,
               f"`python -m dct3d_tpu_torch devices`: rc {res.returncode}, {res.stdout!r}")
 
+        # 6. The transport-delta wire.
+        dbox = os.path.join(d, "delta.d3v")
+        launches["transport_delta"] = cli_path("transport_delta", REF8, [
+            ("encode", src, dbox, *geo, "--transport-delta"),
+            ("decode", dbox, dec, *geo, "--transport-delta")])
+        with open(dbox, "rb") as f:
+            check(f.read() == data, "--transport-delta changed the default container")
+        check(np.array_equal(np.fromfile(dec, np.uint8).reshape(T, H, W), lib["out_par"]),
+              "CLI --transport-delta pixels differ from the library decode")
+
+        # 7. RGB, both profiles.
+        rgb, rgb_out = rgb_lib
+        rsrc = os.path.join(d, "src.rgb")
+        rgb.tofile(rsrc)
+        for name, flags, path in (("rgb", [], REF8),
+                                  ("turbo_rgb", ["--turbo", "--turbo-codec", "zlib"], TURBO8)):
+            rbox = os.path.join(d, f"{name}.d3v")
+            launches[name] = cli_path(name, path, [
+                ("encode", rsrc, rbox, *geo, "--rgb", *flags),
+                ("decode", rbox, dec, *geo),
+                ("decode", rbox, os.path.join(d, "rrng.raw"), *geo, "--range", "5:13")])
+            with open(rbox, "rb") as f:
+                check(container_digest(f.read()) == JAX_RGB_CONSTANTS[name]["digest"],
+                      f"CLI {name}: the container differs from the JAX package's")
+            check(np.array_equal(np.fromfile(dec, np.uint8).reshape(rgb.shape), rgb_out),
+                  f"CLI {name}: pixels differ from the rgb phase's")
+            check(np.array_equal(np.fromfile(os.path.join(d, "rrng.raw"), np.uint8),
+                                 rgb_out[5:13].reshape(-1)),
+                  f"CLI {name} --range 5:13 differs from the slice")
+
+        # 8. Checkpointed, twice, then decoded from the .meta sidecar.
+        ck = os.path.join(d, "ck.d3v")
+        kernels.LAUNCHES.clear()
+        run_cli("encode", src, ck, *geo, "--checkpoint-every", "2")
+        second = run_cli("encode", src, ck, *geo, "--checkpoint-every", "2")
+        run_cli("decode", ck, dec)
+        launches["checkpoint"] = path_launches("CLI checkpoint", REF8)
+        check(f"resuming at frame {T}" in second, "the second run did not resume")
+        check(os.path.exists(ck + ".meta"), "no .meta sidecar")
+        check(np.array_equal(np.fromfile(dec, np.uint8).reshape(T, H, W), lib["out_par"]),
+              "CLI checkpoint pixels differ from the library decode")
+
         # End-to-end fps, file to file: the best of three runs.
         enc_s = min(_timed(lambda: run_cli("encode", src, box, *geo)) for _ in range(3))
         dec_s = min(_timed(lambda: run_cli("decode", box, dec, *geo)) for _ in range(3))
     emit(phase="cli", card=smi, launches=launches, bpp=bpp, jax_bpp=want["bpp"],
          content_equals_jax=True, pixels_equal_library=True, range_equals_slice=True,
-         two_members_equal_one_by_one=True,
+         two_members_equal_one_by_one=True, delta_container_equals_default=True,
+         rgb_content_equals_jax=True, checkpoint_resumes=True,
          parity_stream_equals_serial_sink=True, turbo_digest_equals_jax=True,
          portrait_pixels_equal_blocks_phase=True, devices=res.stdout.strip().splitlines(),
          cli_encode_fps=T / enc_s, cli_decode_fps=T / dec_s)
@@ -1179,10 +1499,17 @@ def main() -> None:
          turbo_encode_device_fps=T / (tenc_dev_ms / 1e3),
          turbo_decode_device_fps=T / (tdec_dev_ms / 1e3))
 
-    # The command line, each path with launch counts of its own; after the
-    # library's timing, so that runs under the same conditions as before.
-    phase_cli(clip, {"par": par, "ser": ser, "ends": ends_par, "syncs": syncs,
-                     "out_par": out_par}, portrait_cropped, smi)
+    # This slice's library paths, each with launch counts of its own; then
+    # the command line.  All after the library's timing, so that runs under
+    # the same conditions as before.
+    lib = {"par": par, "ser": ser, "ends": ends_par, "syncs": syncs, "out_par": out_par,
+           "out_ser": out_ser}
+    phase_delta(clip, lib, smi)
+    phase_host_encode(clip, lib, smi)
+    phase_speculative(lib, ctx, smi)
+    rgb_lib = phase_rgb(smi)
+    phase_checkpoint(clip, lib, smi)
+    phase_cli(clip, lib, portrait_cropped, rgb_lib, smi)
 
     print(json.dumps({"kernels": rows + brows + trows}), flush=True)
     print(json.dumps({"ok": True, "device": {

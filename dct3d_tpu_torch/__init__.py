@@ -23,9 +23,12 @@ K5 (``ops/bitpack.pack_bits``).  ``io/pad.py`` edge-replicates frames up to
 block multiples and crops them back.
 
 Default encodes wrap the stream in an indexed D3MH container
-(parallel/multihost.py); ``decode_auto`` (codec/auto.py) reads every form
-the port writes, and ``python -m dct3d_tpu_torch`` (cli.py) is the command
-line of the JAX package's ``python -m dct3d_tpu``.
+(parallel/multihost.py); colour clips travel as three channel members
+(codec/rgb_codec.py, and turbo RGB in codec/turbo.py); the checkpointing
+encoder writes a resumable member container (codec/checkpoint.py).
+``decode_auto`` (codec/auto.py) reads every form the port writes, and
+``python -m dct3d_tpu_torch`` (cli.py) is the command line of the JAX
+package's ``python -m dct3d_tpu``.
 
 Every public entry point takes an explicit ``device`` (or a
 ``TransformContext`` that holds one): on "cuda" the kernels run, on "cpu"
@@ -33,13 +36,16 @@ their plain PyTorch versions.  The package imports torch and never jax.
 """
 
 from .codec.auto import decode_auto, decode_auto_range
+from .codec.checkpoint import CheckpointingEncoder, resume_info
 from .codec.decoder import (
     StreamingDecoder, decode_frame_range, decode_stream, decode_video,
 )
 from .codec.encoder import StreamingEncoder, encode_stream, encode_video
+from .codec.rgb_codec import decode_rgb_range, decode_rgb_video, encode_rgb_video
 from .codec.transform import TransformContext
 from .codec.turbo import (
     TurboEncoder, decode_turbo_container, decode_turbo_range,
+    decode_turbo_rgb_range, decode_turbo_rgb_video, encode_turbo_rgb_video,
     encode_turbo_video,
 )
 from .config import DEFAULT_CONFIG, CodecConfig
@@ -48,6 +54,7 @@ from .metrics import bits_per_pixel, psnr
 from .profiling import StageTimer
 
 __all__ = [
+    "CheckpointingEncoder",
     "CodecConfig",
     "DEFAULT_CONFIG",
     "StageTimer",
@@ -60,14 +67,21 @@ __all__ = [
     "decode_auto",
     "decode_auto_range",
     "decode_frame_range",
+    "decode_rgb_range",
+    "decode_rgb_video",
     "decode_stream",
     "decode_turbo_container",
     "decode_turbo_range",
+    "decode_turbo_rgb_range",
+    "decode_turbo_rgb_video",
     "decode_video",
+    "encode_rgb_video",
     "encode_stream",
+    "encode_turbo_rgb_video",
     "encode_turbo_video",
     "encode_video",
     "pad_frames",
     "padded_geometry",
     "psnr",
+    "resume_info",
 ]

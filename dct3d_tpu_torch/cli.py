@@ -12,11 +12,15 @@ bytes):
 
 A default encode writes an indexed D3MH container: one temporal member,
 then an index member with the per-GOP bit ends and the parallel-inflate
-sync offsets, so decode needs no frame count.  The flags of items not
-ported yet exit 2 and name their ROADMAP item (``_UNPORTED``);
-``--pack-bits`` and ``--gops-per-batch`` size the TPU's buffers and
-batches, never the bytes, and are accepted and ignored.  Without a card,
-encode, decode and sweep exit 2 unless ``--device cpu`` is given.
+sync offsets, so decode needs no frame count.  ``--rgb`` carries a colour
+clip as three channel members, ``--checkpoint-every N`` writes a resumable
+container (a rerun resumes; decode then reads the geometry from its
+``.meta`` sidecar), and ``--transport-delta`` ships temporal deltas to the
+device without changing a byte.  ``--mesh`` and ``--dtype bfloat16`` exit
+2 and name their ROADMAP item (``_UNPORTED``); ``--pack-bits`` and
+``--gops-per-batch`` size the TPU's buffers and batches, never the bytes,
+and are accepted and ignored.  Without a card, encode, decode and sweep
+exit 2 unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -41,10 +45,7 @@ _BATCH_GOPS = 4
 #: flags of items not ported yet: (attribute, is it set?, flag, ROADMAP
 #: Queue 1 item)
 _UNPORTED = (
-    ("rgb", bool, "--rgb", 11),
-    ("checkpoint_every", bool, "--checkpoint-every", 11),
     ("mesh", bool, "--mesh", 12),
-    ("transport_delta", bool, "--transport-delta", 7),
     ("dtype", lambda d: _norm_dtype(d) != "float32", "--dtype bfloat16", 8),
 )
 
@@ -99,6 +100,7 @@ def _cfg_from_args(args) -> CodecConfig:
         block_d=args.block,
         quant_strength=args.quant,
         quant_bias=getattr(args, "quant_bias", 0.5),
+        transport_delta=getattr(args, "transport_delta", False),
         zlib_level=level,
         deflate_workers=0 if getattr(args, "parity", False) else args.deflate_workers,
         pack_bits_per_value=getattr(args, "pack_bits", None) or 4,
@@ -166,9 +168,16 @@ def _add_codec_args(p: argparse.ArgumentParser) -> None:
         "--stats", action="store_true",
         help="encode: print per-stage timing/bandwidth JSON to stderr",
     )
-    p.add_argument("--transport-delta", action="store_true",
-                   help="not ported yet (exits 2)")
-    p.add_argument("--rgb", action="store_true", help="not ported yet (exits 2)")
+    p.add_argument(
+        "--transport-delta", action="store_true",
+        help="encode: ship frames to the device as temporal deltas (output "
+        "unchanged)",
+    )
+    p.add_argument(
+        "--rgb", action="store_true",
+        help="treat input/output as interleaved RGB (3 B/px): channels are "
+        "coded separately and carried as 3 members of one container",
+    )
     p.add_argument(
         "--turbo", action="store_true",
         help="encode: turbo (planar) profile — the wire carries the "
@@ -197,8 +206,11 @@ def _add_codec_args(p: argparse.ArgumentParser) -> None:
         help="encode: emit the raw headerless stream (decode then needs an "
         "explicit frame count)",
     )
-    p.add_argument("--checkpoint-every", type=int, default=0, metavar="GOPS",
-                   help="not ported yet (exits 2)")
+    p.add_argument(
+        "--checkpoint-every", type=int, default=0, metavar="GOPS",
+        help="encode: write a resumable member container (D3MH) with durable "
+        "progress every N GOPs; re-running the same command resumes",
+    )
     p.add_argument(
         "--profile-dir", default=None,
         help="write a torch.profiler trace of the run to DIR/trace.json",
@@ -237,7 +249,7 @@ def _load_footage(args):
         from .io import rawvideo
 
         stream = rawvideo.StreamFrames(sys.stdin.buffer, args.width,
-                                       args.height)
+                                       args.height, 3 if args.rgb else 1)
         return stream, args.width, args.height
     is_png = (
         os.path.isdir(inp)
@@ -251,11 +263,13 @@ def _load_footage(args):
     if is_png:
         from .io.png import read_png_sequence
 
-        video = read_png_sequence(inp, frames=args.frames, gray=True)
+        video = read_png_sequence(inp, frames=args.frames, gray=not args.rgb)
     elif is_y4m:
-        from .io.y4m import read_y4m
+        from .io.y4m import read_y4m, read_y4m_rgb
 
-        video, _info = read_y4m(inp, frames=args.frames)
+        # --rgb: BT.601 YCbCr -> RGB; the planes take the RGB member path.
+        read = read_y4m_rgb if args.rgb else read_y4m
+        video, _info = read(inp, frames=args.frames)
     else:
         return None, args.width, args.height
     h, w = video.shape[1], video.shape[2]
@@ -274,9 +288,10 @@ def cmd_encode(args) -> int:
     if _unported(args):
         return 2
     cfg = _cfg_from_args(args)
-    if args.output == "-" and args.index:
+    if args.output == "-" and (args.index or args.checkpoint_every):
         print("stdout output cannot combine with --index (needs a seekable "
-              "file)", file=sys.stderr)
+              "file) or --checkpoint-every (needs fsync/resume)",
+              file=sys.stderr)
         return 2
     say = (lambda *a: print(*a, file=sys.stderr)) \
         if args.output == "-" else print
@@ -302,6 +317,13 @@ def cmd_encode(args) -> int:
         print("raw input needs explicit width and height", file=sys.stderr)
         return 2
     stream = video if isinstance(video, rawvideo.StreamFrames) else None
+    if stream is not None and args.rgb:
+        # The three channel passes re-read the footage and a pipe cannot be
+        # re-read, so this path buffers the whole pipe.
+        print("warning: --rgb with piped input buffers the WHOLE pipe in "
+              "RAM (channel passes re-read the footage) — use a file input "
+              "for bounded memory", file=sys.stderr)
+        video, stream = stream.read_all(), None
     if args.pad:
         from .io.pad import pad_frames, padded_geometry, padded_stream
 
@@ -312,8 +334,8 @@ def cmd_encode(args) -> int:
                                                cfg.block_h)
             else:
                 if video is None:
-                    video = rawvideo.read_video(args.input, width, height,
-                                                args.frames)
+                    video = rawvideo.read_video(args.input, width, height, args.frames,
+                                                channels=3 if args.rgb else 1)
                 video = pad_frames(video, cfg.block_w, cfg.block_h)
             print(
                 f"note: padded {width}x{height} -> {pw}x{ph}; decode with "
@@ -321,6 +343,8 @@ def cmd_encode(args) -> int:
                 file=sys.stderr,
             )
             width, height = pw, ph
+    if args.rgb:
+        return _encode_rgb(args, cfg, dev, video, width, height, say)
     if stream is not None:
         total = None  # a pipe's length is unknowable up front
     elif video is not None:
@@ -342,6 +366,9 @@ def cmd_encode(args) -> int:
             return 2
     align = cfg.gop_size
     ctx = TransformContext(cfg, dev)
+    if args.checkpoint_every:
+        return _encode_checkpointed(args, cfg, ctx, video, width, height,
+                                    frames)
     if args.turbo:
         from .codec.turbo import TurboEncoder
 
@@ -435,20 +462,86 @@ def cmd_encode(args) -> int:
     return 0
 
 
-def _frame_batches(args, video, width, height, align, frames):
+def _encode_rgb(args, cfg, dev, video, width, height, say) -> int:
+    """encode --rgb [--turbo]: the whole clip in memory, three channel
+    members (index members too unless --no-index)."""
+    from .codec.transform import TransformContext
+    from .io import rawvideo
+
+    for flag in ("checkpoint_every", "profile_dir", "stats"):
+        if getattr(args, flag, None):
+            print(f"warning: --{flag.replace('_', '-')} is not yet "
+                  "supported with --rgb and is ignored", file=sys.stderr)
+    if video is None:
+        video = rawvideo.read_video(args.input, width, height, args.frames,
+                                    channels=3)
+    t = video.shape[0] - video.shape[0] % cfg.gop_size
+    if t == 0:
+        print(f"input shorter than one {cfg.gop_size}-frame step",
+              file=sys.stderr)
+        return 2
+    ctx = TransformContext(cfg, dev)
+    t0 = time.perf_counter()
+    if args.turbo:
+        from .codec.turbo import encode_turbo_rgb_video
+
+        data = encode_turbo_rgb_video(video, cfg, ctx)
+    else:
+        from .codec.rgb_codec import encode_rgb_video
+
+        data = encode_rgb_video(video, cfg, ctx, index=args.index is not False)
+    dt = time.perf_counter() - t0
+    with _open_out(args.output) as f:
+        f.write(data)
+    say(f"encoded {t} RGB frames {width}x{height} -> "
+        f"{len(data)} bytes in {dt:.2f}s ({t / dt:.1f} fps)")
+    return 0
+
+
+def _encode_checkpointed(args, cfg, ctx, video, width, height, frames) -> int:
+    """encode --checkpoint-every N [--turbo] [--index]: a resumable member
+    container; a rerun of the same command resumes after the last complete
+    member."""
+    from .codec.checkpoint import CheckpointingEncoder
+    from .profiling import profile_to
+
+    t0 = time.perf_counter()
+    with profile_to(args.profile_dir), CheckpointingEncoder(
+        args.output, width, height, cfg, ctx,
+        checkpoint_gops=args.checkpoint_every, turbo=args.turbo,
+        # Explicit --index only: a resume must find the member layout of
+        # the first run.
+        index=bool(args.index),
+    ) as cenc:
+        skip = cenc.frames_done
+        if skip:
+            print(f"resuming at frame {skip}")
+        for batch in _frame_batches(args, video, width, height,
+                                    cfg.gop_size, frames, start=skip):
+            cenc.push(batch)
+    dt = time.perf_counter() - t0
+    written = os.path.getsize(args.output)
+    kind = "turbo container" if args.turbo else "container"
+    print(f"encoded {cenc.frames_done} frames -> {written} bytes ({kind}) "
+          f"in {dt:.2f}s")
+    return 0
+
+
+def _frame_batches(args, video, width, height, align, frames, start=0):
     """Aligned frame batches from in-memory footage, a raw file, or a
-    stdin pipe (constant-RSS streaming; frames None = until EOF)."""
+    stdin pipe (constant-RSS streaming; frames None = until EOF), from
+    frame ``start`` on (a checkpoint resume)."""
     from .io import rawvideo
 
     step = align * _BATCH_GOPS
     if isinstance(video, rawvideo.StreamFrames):
-        yield from video.iter_batches(step, frames, align=align)
+        yield from video.iter_batches(step, frames, align=align, start=start)
     elif video is not None:
-        for i in range(0, frames, step):
+        for i in range(start, frames, step):
             yield video[i : min(i + step, frames)]
     else:
         yield from rawvideo.iter_frame_batches(
-            args.input, width, height, step, frames, align=align
+            args.input, width, height, step, frames, align=align, start=start
         )
 
 
@@ -489,24 +582,51 @@ def _read_sidecar(path: str, cfg: CodecConfig):
 
 
 def _refuse_container(members) -> bool:
-    """Print why and return True for containers the port cannot decode:
-    RGB and turbo-RGB (not ported yet) and unknown member types."""
+    """Print why and return True for a container of unknown member
+    types."""
     from .codec.turbo import is_turbo_container, is_turbo_rgb_container
     from .parallel.multihost import container_kind
 
-    if is_turbo_container(members):
+    if (is_turbo_container(members) or is_turbo_rgb_container(members)
+            or container_kind(members) != "unknown"):
         return False
-    kind = ("turbo-rgb" if is_turbo_rgb_container(members)
-            else container_kind(members))
-    if kind in ("rgb", "turbo-rgb"):
-        print(f"{kind} containers are not decoded by dct3d_tpu_torch yet "
-              "(ROADMAP Queue 1, item 11)", file=sys.stderr)
-        return True
-    if kind == "unknown":
-        print(f"unrecognized member type tags {[m[2] for m in members]}",
-              file=sys.stderr)
-        return True
-    return False
+    print(f"unrecognized member type tags {[m[2] for m in members]}",
+          file=sys.stderr)
+    return True
+
+
+def _rgb_streams(args, members) -> bool | None:
+    """Whether a non-turbo container decodes as RGB: tagged channel members
+    do, and --rgb picks a legacy all-zero-tag container of exactly three
+    stream members.  None after printing why --rgb cannot apply."""
+    from .parallel.multihost import MEMBER_INDEX, container_kind
+
+    kind = container_kind(members)
+    n_streams = sum(1 for m in members if m[2] != MEMBER_INDEX)
+    if args.rgb and kind == "temporal" and n_streams != 3:
+        print("--rgb requested but this container holds "
+              f"{n_streams} temporal member(s)", file=sys.stderr)
+        return None
+    return kind == "rgb" or (args.rgb and n_streams == 3)
+
+
+def _read_meta(args, cfg, width, height):
+    """(cfg, width, height), from the input's .meta sidecar (written by a
+    checkpointing encode) where there is one: it pins the codec parameters
+    and the geometry, so stale command-line flags cannot decode to
+    garbage."""
+    meta_path = args.input + ".meta"
+    if not os.path.exists(meta_path):
+        return cfg, width, height
+    with open(meta_path) as f:
+        meta = json.load(f)
+    mcfg = CodecConfig(**meta["cfg"])
+    if ((width, height) != (meta["width"], meta["height"])
+            or (cfg.block_w, cfg.block_h, cfg.block_d, cfg.quant_strength)
+            != (mcfg.block_w, mcfg.block_h, mcfg.block_d, mcfg.quant_strength)):
+        print(f"note: decoding with the parameters pinned in {meta_path} "
+              "(the command-line flags differ)", file=sys.stderr)
+    return mcfg, meta["width"], meta["height"]
 
 
 def cmd_decode(args) -> int:
@@ -517,15 +637,11 @@ def cmd_decode(args) -> int:
 
     if _unported(args):
         return 2
-    cfg = _cfg_from_args(args)
-    width, height = args.width, args.height
-    if os.path.exists(args.input + ".meta"):
-        print(f"{args.input}.meta: checkpointed containers are not decoded "
-              "by dct3d_tpu_torch yet (ROADMAP Queue 1, item 11)",
-              file=sys.stderr)
-        return 2
+    cfg, width, height = _read_meta(args, _cfg_from_args(args), args.width,
+                                    args.height)
     if width is None or height is None:
-        print("decode requires explicit width and height", file=sys.stderr)
+        print("decode requires explicit width and height (or a .meta "
+              "sidecar next to the input)", file=sys.stderr)
         return 2
     dev = _device(args)
     if dev is None:
@@ -539,6 +655,10 @@ def cmd_decode(args) -> int:
         print(f"no such input: {args.input}", file=sys.stderr)
         return 2
     head = data[:4]
+    if head != b"D3MH" and args.rgb:
+        print("--rgb decode needs a D3MH container (produced by encode "
+              "--rgb); this input is a raw grayscale stream", file=sys.stderr)
+        return 2
     frame_range = None
     if args.frame_range is not None:
         a, _, b = args.frame_range.partition(":")
@@ -570,28 +690,38 @@ def cmd_decode(args) -> int:
               file=sys.stderr)
         return 2
     members = None
+    as_rgb = False
     if head == b"D3MH":
+        from .codec.turbo import is_turbo_container, is_turbo_rgb_container
         from .parallel.multihost import split_members
 
         members = split_members(data)
         if _refuse_container(members):
             return 2
+        turbo = is_turbo_container(members) or is_turbo_rgb_container(members)
+        if not turbo:
+            as_rgb = _rgb_streams(args, members)
+            if as_rgb is None:
+                return 2
     ctx = TransformContext(cfg, dev)
     t0 = time.perf_counter()
     with profile_to(args.profile_dir):
-        if frame_range is not None:
+        if frame_range is not None and as_rgb:
+            from .codec.rgb_codec import decode_rgb_range
+
+            video = decode_rgb_range(data, width, height, *frame_range, cfg, ctx)
+        elif frame_range is not None:
             video = decode_auto_range(
                 data, width, height, *frame_range, cfg, ctx=ctx,
                 positions=side_positions, index_end=side_end)
         elif members is not None:
-            from .codec.turbo import decode_turbo_container, is_turbo_container
-            from .parallel.multihost import decode_multihost_container
+            from .codec.auto import decode_auto
+            from .codec.rgb_codec import decode_rgb_video
 
-            if is_turbo_container(members):
-                video = decode_turbo_container(data, width, height, cfg, ctx)
+            if as_rgb:
+                video = decode_rgb_video(data, width, height, cfg, ctx)
             else:
-                video = decode_multihost_container(data, width, height, cfg,
-                                                   ctx=ctx)
+                video = decode_auto(data, width, height, cfg=cfg, ctx=ctx)
             if args.frames is not None:
                 video = video[: args.frames]
         else:
@@ -620,9 +750,10 @@ def _write_decoded(args, video, width, height, t0) -> int:
         sys.stdout.buffer.write(np.ascontiguousarray(video).tobytes())
         sys.stdout.buffer.flush()
     elif args.output.lower().endswith(".y4m"):
-        from .io.y4m import write_y4m
+        from .io.y4m import write_y4m, write_y4m_rgb
 
-        write_y4m(args.output, video)
+        # Colour output: C444 BT.601 (read_y4m_rgb reads it back).
+        (write_y4m_rgb if video.ndim == 4 else write_y4m)(args.output, video)
     else:
         rawvideo.write_video(args.output, video)
     print(

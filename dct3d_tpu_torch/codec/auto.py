@@ -2,10 +2,9 @@
 
 The port's counterpart of ``dct3d_tpu.codec.auto``.  The codec writes
 several on-disk forms (docs/FORMAT.md): the raw reference-compatible zlib
-stream and D3MH containers of temporal or turbo members, optionally with
-index members; ``decode_auto`` routes by content exactly like the CLI.
-RGB and turbo-RGB containers are recognized and refused: their decoders
-are not ported yet (ROADMAP Queue 1, item 11).
+stream and D3MH containers of temporal, RGB, turbo and turbo-RGB members,
+optionally with index members; ``decode_auto`` routes by content exactly
+like the CLI.
 """
 
 from __future__ import annotations
@@ -18,13 +17,6 @@ from .transform import TransformContext
 from .turbo import is_turbo_container, is_turbo_rgb_container
 
 
-def _refuse_rgb(what: str):
-    raise NotImplementedError(
-        f"{what} containers are not decoded by the port yet "
-        "(ROADMAP Queue 1, item 11: RGB and checkpoint)"
-    )
-
-
 def decode_auto(
     data: bytes,
     width: int,
@@ -34,8 +26,8 @@ def decode_auto(
     ctx: TransformContext | None = None,
     device=None,
 ) -> np.ndarray:
-    """Decode any output of the ported encoders -> (T, H, W) uint8, on
-    ``device`` (or ``ctx.device``).
+    """Decode any output of the ported encoders -> (T, H, W) or
+    (T, H, W, 3) uint8, on ``device`` (or ``ctx.device``).
 
     ``frames`` is required only for the headerless raw stream (exactly the
     CLI's rule); containers are self-describing and ``frames`` then just
@@ -43,7 +35,8 @@ def decode_auto(
     """
     from ..parallel.multihost import decode_multihost_container
     from .decoder import decode_video
-    from .turbo import decode_turbo_container
+    from .rgb_codec import decode_rgb_video
+    from .turbo import decode_turbo_container, decode_turbo_rgb_video
 
     cfg = cfg or CodecConfig()
     ctx = ctx or TransformContext(cfg, device)
@@ -59,11 +52,11 @@ def decode_auto(
     if is_turbo_container(members):
         out = decode_turbo_container(data, width, height, cfg, ctx)
     elif is_turbo_rgb_container(members):
-        _refuse_rgb("turbo-RGB")
+        out = decode_turbo_rgb_video(data, width, height, cfg, ctx)
     else:
         kind = container_kind(members)
         if kind == "rgb":
-            _refuse_rgb("RGB")
+            out = decode_rgb_video(data, width, height, cfg, ctx)
         elif kind == "temporal":
             out = decode_multihost_container(data, width, height, cfg,
                                              ctx=ctx)
@@ -98,7 +91,8 @@ def decode_auto_range(
     """
     from ..parallel.multihost import decode_container_range
     from .decoder import decode_frame_range
-    from .turbo import decode_turbo_range
+    from .rgb_codec import decode_rgb_range
+    from .turbo import decode_turbo_range, decode_turbo_rgb_range
 
     cfg = cfg or CodecConfig()
     ctx = ctx or TransformContext(cfg, device)
@@ -109,10 +103,10 @@ def decode_auto_range(
     if is_turbo_container(members):
         return decode_turbo_range(data, width, height, start, stop, cfg, ctx)
     if is_turbo_rgb_container(members):
-        _refuse_rgb("turbo-RGB")
+        return decode_turbo_rgb_range(data, width, height, start, stop, cfg, ctx)
     kind = container_kind(members)
     if kind == "rgb":
-        _refuse_rgb("RGB")
+        return decode_rgb_range(data, width, height, start, stop, cfg, ctx)
     if kind == "temporal":
         return decode_container_range(data, width, height, start, stop, cfg,
                                       ctx)

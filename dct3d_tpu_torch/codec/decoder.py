@@ -8,7 +8,10 @@ device with non-blocking copies from pinned memory, is inverse-transformed
 there (codec/transform.planar4_to_frames), and comes back with a
 non-blocking copy while the host decodes the next GOPs.
 ``StreamingDecoder`` / ``decode_stream`` run the same device step on
-compressed bytes fed in pieces (entropy.InflateSource).
+compressed bytes fed in pieces (entropy.InflateSource).  Without an index
+the GOP boundaries come from the fused speculative decode
+(entropy.parallel_chunks).  With ``cfg.transport_delta`` the device emits
+wrapping temporal deltas and the host undoes them GOP by GOP (_undelta).
 
 Geometry (width/height/frame count) is supplied out of band exactly like
 the reference (no container header, Decoder.java:17-28, main.c:27-44).
@@ -17,6 +20,7 @@ the reference (no container header, Decoder.java:17-28, main.c:27-44).
 from __future__ import annotations
 
 import collections
+import os
 import zlib
 from typing import Iterable, Iterator
 
@@ -29,6 +33,17 @@ from . import entropy
 from .transform import TransformContext, planar4_to_frames, to_device
 
 _WINDOW = 4  # GOPs in flight on the device before the oldest is drained
+
+
+def _undelta(frames: np.ndarray, cfg: CodecConfig) -> np.ndarray:
+    """Reconstruct frames shipped as wrapping temporal deltas (exact), GOP
+    by GOP: the deltas restart at every GOP.  The drains pass the
+    context's cfg, the one the device step emitted the deltas under."""
+    if not cfg.transport_delta:
+        return frames
+    t, h, w = frames.shape
+    gops = frames.reshape(t // cfg.gop_size, cfg.gop_size, h, w)
+    return np.cumsum(gops, axis=1, dtype=np.uint8).reshape(frames.shape)
 
 
 def _split_dc_flat(plane: np.ndarray, idx: np.ndarray, val: np.ndarray,
@@ -132,7 +147,8 @@ class StreamingDecoder:
         for _, done in pending:
             if done is not None:
                 done.synchronize()
-        return np.concatenate([host.numpy() for host, _ in pending])
+        return np.concatenate([_undelta(host.numpy(), self.ctx.cfg)
+                               for host, _ in pending])
 
 
 def decode_video(
@@ -146,6 +162,7 @@ def decode_video(
     positions: list[int] | None = None,
     sync_offsets: list[int] | None = None,
     index_end: int | None = None,
+    entropy_workers: int | None = None,
 ) -> np.ndarray:
     """One-call decode of a complete bitstream -> (T, H, W) uint8, on
     ``device`` (or ``ctx.device``).
@@ -153,8 +170,10 @@ def decode_video(
     `frames` is truncated to a GOP multiple (Decoder.java:34-36).
     ``positions`` (per-GOP start bit offsets) and ``sync_offsets`` (per-GOP
     compressed byte offsets), both from the encoder's index, let every host
-    core work; ``index_end`` is that index's last bit end: see
-    decode_frame_range.
+    core work; without positions the fused speculative decode finds the
+    GOPs.  ``index_end`` is the index's last bit end: see
+    decode_frame_range.  ``entropy_workers`` sizes the host entropy pool
+    (default: every core).
     """
     cfg = cfg or CodecConfig()
     t = frames - frames % cfg.gop_size
@@ -163,6 +182,7 @@ def decode_video(
     return decode_frame_range(
         data, width, height, 0, t, cfg, ctx, device, positions=positions,
         sync_offsets=sync_offsets, index_end=index_end,
+        entropy_workers=entropy_workers,
     )
 
 
@@ -178,13 +198,16 @@ def decode_frame_range(
     positions: list[int] | None = None,
     sync_offsets: list[int] | None = None,
     index_end: int | None = None,
+    entropy_workers: int | None = None,
 ) -> np.ndarray:
     """Random-access decode of the half-open frame range [start, stop).
 
     Only the covering GOPs run the host entropy stage and the device
     inverse transform.  The skipped prefix costs one inflate pass plus,
-    without ``positions``, a serial boundary scan (eg_scan).  With
-    ``sync_offsets`` the inflate itself runs GOP-parallel.
+    without ``positions``, a boundary scan: the speculative parallel scan
+    of the whole payload or the serial walk of the prefix, whichever the
+    estimated work favours.  With ``sync_offsets`` the inflate itself runs
+    GOP-parallel.
 
     ``index_end``, the last GOP bit end of the index that gave
     ``positions``, is held against the inflated payload: an index that
@@ -220,17 +243,29 @@ def decode_frame_range(
             raise ValueError(f"index has {len(positions)} positions, need {g1}")
         span = list(positions[g0:g1])
     elif g0 == 0:
-        span = None  # parallel_chunks scans ahead of its workers
+        span = None  # parallel_chunks finds the boundaries itself
     else:
-        pos, span = 0, []
-        try:
-            for g in range(g1):
-                if g >= g0:
-                    span.append(pos)
-                if g + 1 < g1:
-                    pos = entropy.scan_values(payload, cpg, pos)
-        except EOFError:
-            raise EOFError("bitstream too short for requested frame range")
+        # Prefix skip.  The speculative scan covers the whole payload on
+        # every core; the serial walk touches only the g1-GOP prefix on
+        # one.  Pick by estimated work (a payload carries ~1.2 bits/value
+        # on typical streams, so ~payload_bytes*6.7 values in all).
+        workers = entropy_workers or (os.cpu_count() or 2)
+        spec = None
+        if g1 * cpg * workers > payload.size * 6.7:
+            spec = entropy.speculative_positions(payload, cpg, g1,
+                                                 entropy_workers)
+        if spec is not None:
+            span = spec[g0:g1]
+        else:
+            pos, span = 0, []
+            try:
+                for g in range(g1):
+                    if g >= g0:
+                        span.append(pos)
+                    if g + 1 < g1:
+                        pos = entropy.scan_values(payload, cpg, pos)
+            except EOFError:
+                raise EOFError("bitstream too short for requested frame range")
     out = np.empty(((g1 - g0) * fpg, height, width), np.uint8)
     pending: collections.deque = collections.deque()
 
@@ -238,11 +273,12 @@ def decode_frame_range(
         k, host, done = pending.popleft()
         if done is not None:
             done.synchronize()
-        out[k * fpg : (k + 1) * fpg] = host.numpy()
+        out[k * fpg : (k + 1) * fpg] = _undelta(host.numpy(), ctx.cfg)
 
     try:
         for k, (plane, ei, ev, _pos) in enumerate(entropy.parallel_chunks(
-            payload, cpg, g1 - g0, positions=span,
+            payload, cpg, g1 - g0, entropy.decode_values_planar4,
+            entropy_workers, positions=span,
         )):
             frames_dev = _dispatch_planar4((plane, ei, ev), ctx, height, width)
             pending.append((k, *_to_host_async(frames_dev)))

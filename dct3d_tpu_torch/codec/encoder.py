@@ -7,6 +7,15 @@ cross-GOP bit carry is chained on the device, and a single drainer thread
 copies each GOP's packed bytes to the host and deflates them into one zlib
 stream while the device works on the next GOP.
 
+With ``cfg.transport_delta`` the host sends each GOP as wrapping uint8
+temporal deltas and the device rebuilds the frames before the transform;
+the stream does not change.  ``device_pack=False`` is the host encode path:
+the device quantizes raw frames, the drainer copies the ints back and the C
+encoder packs them into the sink (``sink.push_values``).  Like the JAX
+package's host path it marks no GOP boundaries and records no bit ends, so
+``gop_bit_ends`` stays empty and the parallel sink's ``gop_sync_offsets``
+is None.
+
 The JAX encoder's budget ladder and overflow retry are gone: the port's
 pack buffers have the worst-case size and cannot overflow.
 """
@@ -23,7 +32,9 @@ import torch
 from ..config import CodecConfig
 from ..profiling import StageTimer
 from . import entropy
-from .transform import EncodedGOP, TransformContext, encode_step, to_device
+from .transform import (
+    EncodedGOP, TransformContext, encode_step, quantize_step, to_device,
+)
 
 _MAX_INFLIGHT = 3  # GOPs in flight before push() waits for the oldest
 
@@ -42,7 +53,8 @@ class StreamingEncoder:
 
     ``carry`` = (code, bits) starts the Exp-Golomb payload with a partial
     byte of ``bits`` (0..7) bits, e.g. another encoder's carry, so a stream
-    can continue where that encoder stopped.
+    can continue where that encoder stopped.  ``device_pack=False`` packs on
+    the host (see the module docstring).
     """
 
     def __init__(
@@ -55,11 +67,6 @@ class StreamingEncoder:
         device_pack: bool = True,
         carry: tuple[int, int] = (0, 0),
     ) -> None:
-        if not device_pack:
-            raise NotImplementedError(
-                "device_pack=False (host Exp-Golomb encode) is not ported "
-                "(ROADMAP Queue 1: host encode path)"
-            )
         self.cfg = cfg or CodecConfig()
         self.cfg.validate_geometry(width, height)
         self.width = width
@@ -68,6 +75,7 @@ class StreamingEncoder:
         self.device = self.ctx.device
         self.sink = entropy.make_sink(self.cfg)
         self.sink.carry_code, self.sink.carry_bits = carry
+        self.device_pack = device_pack
         #: frames pushed so far (GOP multiples); complete once finish()
         #: returns, and what a container's member header records.
         self.frames_encoded = 0
@@ -102,11 +110,29 @@ class StreamingEncoder:
             with self.timer.stage("device_wait"):
                 total_bits = int(gop.total_bits)  # synchronizes the copy stream
             nbytes = total_bits // 8 + 1
-            with self.timer.stage("d2h", nbytes):
-                host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
-                host.copy_(gop.packed[:nbytes], non_blocking=True)
-                self._copy_stream.synchronize()
-        return total_bits, host.numpy()
+            return total_bits, self._copy_back(gop.packed[:nbytes])
+
+    def _copy_back(self, t: torch.Tensor) -> np.ndarray:
+        """Copy a device tensor into pinned host memory on the copy stream
+        (the caller has made it wait for the producer's event)."""
+        with self.timer.stage("d2h", t.numel() * t.element_size()):
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            self._copy_stream.synchronize()
+        return host.numpy()
+
+    def _drain_values(self, q: torch.Tensor, done) -> bytes:
+        """Drainer thread, host path: fetch one GOP's quantized ints and
+        entropy-code them into the sink (no GOP boundary, no bit end: the
+        JAX package's host path records neither)."""
+        if self._copy_stream is None:
+            host = q.numpy()
+        else:
+            with torch.cuda.stream(self._copy_stream):
+                self._copy_stream.wait_event(done)
+                host = self._copy_back(q)
+        with self.timer.stage("deflate", host.nbytes):
+            return self.sink.push_values(host.reshape(-1))
 
     def _drain_gop(self, gop: EncodedGOP, done) -> bytes:
         """Drainer thread: fetch one GOP's packed bytes and deflate them.
@@ -151,14 +177,20 @@ class StreamingEncoder:
         for i in range(0, t, gop_size):
             raw = frames[i : i + gop_size]
             with self.timer.stage("dispatch", raw.nbytes):
-                gop = encode_step(to_device(raw, self.device), self.ctx,
-                                  *self._carry)
-            self._carry = (gop.carry_code, gop.carry_bits)
+                if not self.device_pack:
+                    step = quantize_step(to_device(raw, self.device), self.ctx)
+                else:
+                    if self.cfg.transport_delta:
+                        raw = _deltas(raw)
+                    step = encode_step(to_device(raw, self.device), self.ctx,
+                                       *self._carry)
+                    self._carry = (step.carry_code, step.carry_bits)
             done = None
             if self._copy_stream is not None:
                 done = torch.cuda.Event()
                 done.record(torch.cuda.current_stream(self.device))
-            self._out.append(self._drainer.submit(self._drain_gop, gop, done))
+            drain = self._drain_gop if self.device_pack else self._drain_values
+            self._out.append(self._drainer.submit(drain, step, done))
             # Backpressure: bound in-flight device buffers / host memory.
             if len(self._out) > _MAX_INFLIGHT:
                 self._out[0].result()
@@ -180,6 +212,15 @@ class StreamingEncoder:
         (entropy.parallel_inflate) — available after finish() with the
         parallel sink; None for the serial reference-parity layout."""
         return self.sink.sync_offsets()
+
+
+def _deltas(gop: np.ndarray) -> np.ndarray:
+    """One GOP's frames as wrapping uint8 temporal deltas (the first frame
+    as it is), which the device's mod-256 prefix sum undoes."""
+    delta = np.empty_like(gop)
+    delta[0] = gop[0]
+    np.subtract(gop[1:], gop[:-1], out=delta[1:])  # wraps
+    return delta
 
 
 def encode_video(

@@ -1,26 +1,33 @@
-"""Host-side entropy layer: the C Exp-Golomb decoder + streaming zlib.
+"""Host-side entropy layer: the C Exp-Golomb codec + streaming zlib.
 
-A copy of the part of ``dct3d_tpu.codec.entropy`` that the reference-profile
-encode/decode slice calls; the code is NumPy, ctypes and zlib, and the copy
-exists only because importing the JAX package loads jax.
+A copy of the host part of ``dct3d_tpu.codec.entropy``; the code is NumPy,
+ctypes and zlib, and the copy exists only because importing the JAX package
+loads jax.
 
+  * ``encode_values`` and the sinks' ``push_values``: the host Exp-Golomb
+    encode (``StreamingEncoder(device_pack=False)``);
   * the DEFLATE sinks (serial reference-parity layout, and the parallel
     pigz-style layout with per-GOP sync points) and parallel inflate;
-  * the C decoders: ``eg_scan`` for GOP boundaries and the fused
-    decode-to-nibble-plane ``eg_decode_planar4``;
+  * the C decoders: ``eg_scan`` for GOP boundaries, the fused
+    decode-to-nibble-plane ``eg_decode_planar4`` and its two-stream pair
+    form;
+  * the speculative parallel scan (``speculative_positions``) and the fused
+    speculative decode (``speculative_planar4_chunks``) of streams without
+    an index;
   * ``parallel_chunks``, which decodes GOPs on a thread pool, from known
-    start positions (a stream index) or behind a serial boundary scan;
+    start positions (a stream index) or through the speculative routes,
+    with the serial boundary scan as the last resort;
   * ``InflateSource``, the streaming inflate with a bit cursor behind
     ``StreamingDecoder`` (its planar4 reader only: the port decodes
     through the nibble plane).
 
-Not copied yet: the speculative parallel scan and the fused speculative
-decode (``dct3d_tpu.codec.entropy.speculative_*``).  Without positions the
-port therefore takes the serial scan-ahead.
+The C library is required (there is no NumPy fallback), so the JAX code's
+``native.load() is None`` branches are not copied.
 """
 
 from __future__ import annotations
 
+import bisect
 import collections
 import ctypes
 import os
@@ -36,6 +43,27 @@ from .. import native
 def _as_u8(data) -> np.ndarray:
     buf = np.frombuffer(data, dtype=np.uint8) if isinstance(data, (bytes, bytearray)) else data
     return np.ascontiguousarray(buf, dtype=np.uint8)
+
+
+def encode_values(values: np.ndarray, bitpos: int = 0) -> tuple[bytes, int]:
+    """Pack int32 values; returns (bytes incl. partial, new bit length).
+
+    The returned buffer starts at stream bit 0; `bitpos` bits of leading
+    padding are zeros to be OR-merged by the caller (the sinks do this with
+    their carry byte).
+    """
+    values = np.ascontiguousarray(values, dtype=np.int32)
+    # Worst case ~61 bits/value, typical <4; allocate generously.
+    cap = (bitpos + 7) // 8 + values.size * 8 + 16
+    out = np.zeros(cap, dtype=np.uint8)
+    pos = ctypes.c_uint64(bitpos)
+    rc = native.load().eg_encode(
+        values.ctypes.data, values.size, out.ctypes.data, cap, ctypes.byref(pos),
+    )
+    if rc != 0:  # pragma: no cover - cap is worst-case sized
+        raise OverflowError("exp-golomb encode buffer overflow")
+    nbits = int(pos.value)
+    return out[: (nbits + 7) // 8].tobytes(), nbits
 
 
 def scan_values(data: bytes | np.ndarray, n: int, bitpos: int = 0) -> int:
@@ -84,23 +112,494 @@ def decode_values_planar4(
         return plane, exc_idx[:k], exc_val[:k], int(pos.value)
 
 
+#: Speculative-scan tuning: handshake window (starts recorded per segment),
+#: checkpoint stride (2**shift codewords), minimum bytes per segment.
+_SPEC_REC_CAP = 1024
+_SPEC_CKPT_SHIFT = 12
+_SPEC_MIN_SEG = 1 << 17
+
+
+def speculative_positions(payload, values_per_chunk: int, n_chunks: int,
+                          workers: int | None = None) -> list[int] | None:
+    """All chunk start bit positions of a headerless stream, in parallel.
+
+    The payload is cut into byte-aligned segments and every segment is
+    scanned concurrently from its (speculative) byte boundary; Exp-Golomb
+    walks from different alignments converge onto the true codeword grid
+    after a few codewords, and the stitch validates each segment by an exact
+    position handshake: the true entry position must appear among the
+    segment's first recorded starts (then the true walk from there is the
+    speculative walk).  A failed handshake falls back to a serial catch-up
+    scan of that segment, so adversarial content costs the serial
+    behaviour, never correctness.
+
+    Returns n_chunks absolute bit positions, or None when the payload is
+    too small to be worth it or the stream ends prematurely (callers then
+    use the serial scan, which owns the reference EOF semantics).
+    """
+    lib = native.load()
+    buf = _as_u8(payload)
+    workers = workers or (os.cpu_count() or 2)
+    n_seg = max(1, min(workers * 4, buf.size // _SPEC_MIN_SEG))
+    if n_seg < 2 or n_chunks < 2:
+        return None  # too small to beat the serial scan
+    nbits = buf.size * 8
+    bounds = [buf.size * s // n_seg for s in range(n_seg)] + [buf.size]
+
+    def scan_segment(s: int):
+        start_bit = bounds[s] * 8
+        end_bit = bounds[s + 1] * 8
+        seg_bits = end_bit - start_bit
+        ckpt_cap = (seg_bits >> _SPEC_CKPT_SHIFT) + 2
+        rec = np.empty(_SPEC_REC_CAP, np.uint64)
+        ckpt_cnt = np.zeros(ckpt_cap, np.uint64)
+        ckpt_pos = np.full(ckpt_cap, start_bit, np.uint64)
+        cnt = ctypes.c_uint64(0)
+        exit_pos = lib.eg_scan_segment(
+            buf.ctypes.data, nbits, start_bit, end_bit,
+            rec.ctypes.data, _SPEC_REC_CAP,
+            ckpt_cnt.ctypes.data, ckpt_pos.ctypes.data, ckpt_cap,
+            _SPEC_CKPT_SHIFT, ctypes.byref(cnt),
+        )
+        return rec, ckpt_cnt, ckpt_pos, int(exit_pos), int(cnt.value)
+
+    with ThreadPoolExecutor(workers) as pool:
+        segs = list(pool.map(scan_segment, range(n_seg)))
+
+    # Stitch: walk the true entry position through the segments.  Per
+    # segment: A = cumulative true count at entry, entry position p,
+    # (steps, j) = serial catch-up length and the speculative index at
+    # convergence (segment 0 is exact: steps=0, j=0).
+    A = [0]
+    meta = []  # (p_s, steps_s, j_s)
+    entry = 0
+    for s in range(n_seg):
+        rec, ckpt_cnt, ckpt_pos, exit_pos, cnt = segs[s]
+        end_bit = bounds[s + 1] * 8
+        if s + 1 < n_seg and exit_pos < end_bit:
+            return None  # stream ended inside an interior segment
+        if s == 0:
+            steps, j = 0, 0
+        else:
+            rlen = min(cnt, _SPEC_REC_CAP)
+            j = int(np.searchsorted(rec[:rlen], np.uint64(entry)))
+            if j < rlen and int(rec[j]) == entry:
+                steps = 0
+            else:
+                # handshake miss: serial catch-up inside this segment
+                match = ctypes.c_int64(-1)
+                pos_out = ctypes.c_uint64(0)
+                steps_out = ctypes.c_uint64(0)
+                rc = lib.eg_scan_catchup(
+                    buf.ctypes.data, nbits, entry, end_bit,
+                    rec.ctypes.data, rlen,
+                    ctypes.byref(match), ctypes.byref(pos_out),
+                    ctypes.byref(steps_out),
+                )
+                if rc != 0:
+                    return None  # data ran out: serial path owns EOF
+                steps = int(steps_out.value)
+                if match.value >= 0:
+                    j = int(match.value)
+                else:
+                    # walked the whole segment serially: exact by itself
+                    A.append(A[-1] + steps)
+                    meta.append((entry, steps, None))
+                    entry = int(pos_out.value)
+                    continue
+        A.append(A[-1] + steps + (cnt - j))
+        meta.append((entry, steps, j))
+        entry = exit_pos
+
+    # Boundary positions: chunk k starts after k*values_per_chunk true
+    # codewords.  Inside a segment, counts >= steps map onto the
+    # speculative walk (checkpoint + short rescan); earlier ones rescan
+    # from the entry.
+    positions = []
+    for k in range(n_chunks):
+        g = k * values_per_chunk
+        if g > A[-1]:
+            return None  # stream too short: serial path owns EOF semantics
+        s = bisect.bisect_right(A, g) - 1
+        s = min(s, n_seg - 1)
+        m = g - A[s]
+        p_s, steps, j = meta[s]
+        if m < steps or j is None:
+            pos = scan_values(buf, m, p_s)
+        else:
+            rec, ckpt_cnt, ckpt_pos, _, _ = segs[s]
+            msp = j + (m - steps)
+            t = msp >> _SPEC_CKPT_SHIFT
+            if t == 0:
+                c0, q0 = 0, bounds[s] * 8
+            else:
+                c0, q0 = int(ckpt_cnt[t]), int(ckpt_pos[t])
+            pos = scan_values(buf, msp - c0, q0)
+        positions.append(pos)
+    return positions
+
+
+#: Interleaved streams per speculative-decode task (the table walk is
+#: load-chain-bound; independent chains overlap in the out-of-order core,
+#: as in the indexed pair decoder).  Deeper interleave loses when stalls
+#: are frequent (more live state per stall), so 2 is the robust default.
+_SPEC_INTERLEAVE = 2
+#: Segments per worker: _SPEC_SEG_FACTOR / _SPEC_INTERLEAVE task waves
+#: (two with the defaults; stragglers idle at most half a wave).
+_SPEC_SEG_FACTOR = 4
+
+
+def speculative_planar4_chunks(payload, values_per_chunk: int, n_chunks: int,
+                               workers: int | None = None):
+    """Fused speculative scan and decode of a headerless planar4 stream.
+
+    speculative_positions finds the chunk boundaries with a parallel scan
+    and the chunks are then decoded in a second pass: two table walks per
+    codeword.  Here the segment walk is the decode: every worker
+    speculatively decodes its byte-aligned segment (local nibble plane +
+    exceptions), the stitch validates each segment by the exact position
+    handshake (a failed handshake falls back to a serial catch-up decode of
+    that segment), and chunk planes are assembled from the validated
+    segment spans with nibble-granular copies (native nibble_copy).  One
+    table walk in all.
+
+    Returns a generator of (plane, exc_idx, exc_val, end_bit) per chunk,
+    exactly decode_values_planar4's result tuples, in stream order, or None
+    when the payload is too small to be worth it, a segment is too large
+    for the local 32-bit indices, or the stream ends prematurely (callers
+    then use the serial path, which owns the reference EOF semantics).
+
+    A chunk that lies inside one byte-aligned span is a view of its
+    segment's plane, shared with no other chunk; callers must not write
+    into the planes.  Memory: the segment planes hold about 4 bytes per
+    payload byte while they live (a nibble per possible 1-bit codeword);
+    streams too large for that should carry an index instead.
+    """
+    if values_per_chunk % 2:
+        return None  # planar4 needs even chunks
+    lib = native.load()
+    buf = _as_u8(payload)
+    workers = workers or (os.cpu_count() or 2)
+    n_seg = max(1, min(workers * _SPEC_SEG_FACTOR,
+                       buf.size // _SPEC_MIN_SEG))
+    if n_seg < 2 or n_chunks < 1:
+        return None  # too small to beat the serial scan
+    if buf.size // n_seg >= (1 << 27):
+        return None  # local int32 indices would overflow
+    nbits = buf.size * 8
+    bounds = [buf.size * s // n_seg for s in range(n_seg)] + [buf.size]
+    groups = [list(range(g, min(g + _SPEC_INTERLEAVE, n_seg)))
+              for g in range(0, n_seg, _SPEC_INTERLEAVE)]
+
+    def run_group(group):
+        ns = len(group)
+        seg_bits = max(
+            (bounds[s + 1] - bounds[s]) * 8 for s in group
+        )
+        val_cap = seg_bits + 128
+        stride = val_cap // 2 + 24
+        pos = np.array([bounds[s] * 8 for s in group], np.uint64)
+        ends = np.array([bounds[s + 1] * 8 for s in group], np.uint64)
+        planes = np.empty(ns * stride, np.uint8)
+        recs = np.empty(ns * _SPEC_REC_CAP, np.uint64)
+        ckpt_cap = (val_cap >> _SPEC_CKPT_SHIFT) + 2
+        ckpt_cnt = np.zeros(ns * ckpt_cap, np.uint64)
+        ckpt_pos = np.zeros(ns * ckpt_cap, np.uint64)
+        cap = max(4096, val_cap // 64)
+        while True:
+            p = pos.copy()
+            exc_idx = np.empty(ns * cap, np.int32)
+            exc_val = np.empty(ns * cap, np.int32)
+            nexc = np.zeros(ns, np.uint64)
+            cnts = np.zeros(ns, np.uint64)
+            rc = lib.eg_decode_planar4_seg_multi(
+                buf.ctypes.data, nbits, ns,
+                p.ctypes.data, ends.ctypes.data,
+                recs.ctypes.data, _SPEC_REC_CAP,
+                ckpt_cnt.ctypes.data, ckpt_pos.ctypes.data, ckpt_cap,
+                _SPEC_CKPT_SHIFT,
+                planes.ctypes.data, stride, val_cap,
+                exc_idx.ctypes.data, exc_val.ctypes.data, cap,
+                nexc.ctypes.data, cnts.ctypes.data,
+            )
+            if rc == -2:  # exception capacity; pathological content
+                cap *= 4
+                continue
+            if rc != 0:
+                return None
+            out = []
+            for t, s in enumerate(group):
+                k = int(nexc[t])
+                out.append({
+                    "plane": planes[t * stride : (t + 1) * stride],
+                    "rec": recs[t * _SPEC_REC_CAP : (t + 1) * _SPEC_REC_CAP],
+                    "ckpt_cnt": ckpt_cnt[t * ckpt_cap : (t + 1) * ckpt_cap],
+                    "ckpt_pos": ckpt_pos[t * ckpt_cap : (t + 1) * ckpt_cap],
+                    "exc_idx": exc_idx[t * cap : t * cap + k].copy(),
+                    "exc_val": exc_val[t * cap : t * cap + k].copy(),
+                    "cnt": int(cnts[t]),
+                    "exit_pos": int(p[t]),
+                    "start_bit": bounds[s] * 8,
+                })
+            return out
+
+    with ThreadPoolExecutor(min(workers, len(groups))) as pool:
+        results = list(pool.map(run_group, groups))
+    if any(r is None for r in results):
+        return None
+    segs = [seg for group in results for seg in group]
+
+    # Stitch: walk the true entry position through the segments.  Per
+    # segment: A[s] = cumulative true count at entry, and (steps, j,
+    # cvals) = the serial catch-up decode (length `steps`, values cvals)
+    # plus the speculative index at convergence (segment 0 is exact:
+    # steps=0, j=0).  j=None means the whole segment was walked serially.
+    A = [0]
+    A_pos = []  # true entry position of each segment
+    meta = []  # (steps, j, cvals)
+    entry = 0
+    for s in range(n_seg):
+        A_pos.append(entry)
+        seg = segs[s]
+        end_bit = bounds[s + 1] * 8
+        if s + 1 < n_seg and seg["exit_pos"] < end_bit:
+            return None  # stream ended inside an interior segment
+        if s == 0:
+            steps, j, cvals = 0, 0, None
+        else:
+            rlen = min(seg["cnt"], _SPEC_REC_CAP)
+            j = int(np.searchsorted(seg["rec"][:rlen], np.uint64(entry)))
+            if j < rlen and int(seg["rec"][j]) == entry:
+                steps, cvals = 0, None
+            else:
+                # handshake miss: serial catch-up decode of this segment
+                vcap = 1 << 16
+                while True:
+                    vals = np.empty(vcap, np.int32)
+                    match = ctypes.c_int64(-1)
+                    pos_out = ctypes.c_uint64(0)
+                    steps_out = ctypes.c_uint64(0)
+                    rc = lib.eg_decode_catchup(
+                        buf.ctypes.data, nbits, entry, end_bit,
+                        seg["rec"].ctypes.data, rlen,
+                        vals.ctypes.data, vcap,
+                        ctypes.byref(match), ctypes.byref(pos_out),
+                        ctypes.byref(steps_out),
+                    )
+                    if rc == -2:
+                        vcap *= 4
+                        continue
+                    if rc != 0:
+                        return None
+                    break
+                steps = int(steps_out.value)
+                cvals = vals[:steps].copy()
+                if match.value >= 0:
+                    j = int(match.value)
+                else:
+                    if s + 1 < n_seg and int(pos_out.value) < end_bit:
+                        return None  # data ran out mid-stream: serial EOF
+                    # walked the whole segment serially: exact by itself
+                    A.append(A[-1] + steps)
+                    meta.append((steps, None, cvals))
+                    entry = int(pos_out.value)
+                    continue
+        A.append(A[-1] + steps + (seg["cnt"] - j))
+        meta.append((steps, j, cvals))
+        entry = seg["exit_pos"]
+    total = A[-1]
+    if n_chunks * values_per_chunk > total:
+        return None  # stream too short: serial path owns EOF semantics
+
+    def position_of(g: int) -> int:
+        """Exact bit position of true codeword `g` (checkpoint + a short
+        rescan of < 2**_SPEC_CKPT_SHIFT codewords)."""
+        s = bisect.bisect_right(A, g) - 1
+        s = min(s, n_seg - 1)
+        m = g - A[s]
+        steps, j, _cvals = meta[s]
+        seg = segs[s]
+        if m < steps or j is None:
+            return scan_values(buf, m, A_pos[s])
+        msp = j + (m - steps)
+        t = msp >> _SPEC_CKPT_SHIFT
+        if t == 0:
+            c0, q0 = 0, seg["start_bit"]
+        else:
+            c0, q0 = int(seg["ckpt_cnt"][t]), int(seg["ckpt_pos"][t])
+        return scan_values(buf, msp - c0, q0)
+
+    try:
+        ends = [position_of((k + 1) * values_per_chunk)
+                for k in range(n_chunks)]
+    except EOFError:
+        return None
+
+    V = values_per_chunk
+
+    def build_chunk(k: int):
+        """Chunk k's (plane, exc_idx, exc_val, end_bit) from the validated
+        spans.  Exceptions rebase per chunk in the pool.  A chunk fully
+        inside one byte-aligned span is a view of the segment plane."""
+        g0 = k * V
+        s = bisect.bisect_right(A, g0) - 1
+        plane = None
+        parts_i: list[np.ndarray] = []
+        parts_v: list[np.ndarray] = []
+        g = g0
+        while g < g0 + V:
+            a, b = max(g, A[s]), min(g0 + V, A[s + 1])
+            if b <= a:
+                s += 1
+                continue
+            steps, j, cvals = meta[s]
+            if a < A[s] + steps:  # catch-up splice
+                c1 = min(b, A[s] + steps)
+                cv = cvals[a - A[s] : c1 - A[s]]
+                if plane is None:
+                    plane = np.empty(V // 2, np.uint8)
+                _pack_vals_into(plane, a - g0, cv)
+                li = np.flatnonzero((cv < -8) | (cv > 7))
+                parts_i.append(((a - g0) + li).astype(np.int32))
+                parts_v.append(cv[li])
+                a = c1
+            if a < b:  # validated speculative span
+                local = j + (a - A[s] - steps)
+                if plane is None and a == g0 and b == g0 + V \
+                        and local % 2 == 0:
+                    plane = segs[s]["plane"][local // 2
+                                             : local // 2 + V // 2]
+                else:
+                    if plane is None:
+                        plane = np.empty(V // 2, np.uint8)
+                    lib.nibble_copy(plane.ctypes.data, a - g0,
+                                    segs[s]["plane"].ctypes.data, local,
+                                    b - a)
+                ei, ev = segs[s]["exc_idx"], segs[s]["exc_val"]
+                lo = int(np.searchsorted(ei, local))
+                hi = int(np.searchsorted(ei, local + (b - a)))
+                parts_i.append(ei[lo:hi] - np.int32(local - (a - g0)))
+                parts_v.append(ev[lo:hi])
+            g = b
+            s += 1
+        ci = (np.concatenate(parts_i) if parts_i
+              else np.empty(0, np.int32))
+        cv_ = (np.concatenate(parts_v) if parts_v
+               else np.empty(0, np.int32))
+        return plane, ci, cv_, ends[k]
+
+    def gen():
+        with ThreadPoolExecutor(workers) as pool:
+            futs: dict = {}
+            ahead = workers + 2
+            for c in range(n_chunks):
+                for k in range(c, min(c + ahead, n_chunks)):
+                    if k not in futs:
+                        futs[k] = pool.submit(build_chunk, k)
+                yield futs.pop(c).result()
+
+    return gen()
+
+
+def _pack_vals_into(plane: np.ndarray, d0: int, vals: np.ndarray) -> None:
+    """Write int32 values as nibbles at nibble offset d0 (read-modify-write
+    at the boundary bytes).  Catch-up splice path only: usually tiny, but a
+    never-converging stream (all-wide codewords) routes whole segments
+    through here, so the body is vectorized."""
+    vals = np.asarray(vals, np.int32)
+    n = vals.size
+    if n == 0:
+        return
+    nib = (vals & 0xF).astype(np.uint8)
+    o = 0
+    if d0 & 1:
+        b = d0 >> 1
+        plane[b] = (plane[b] & 0x0F) | (int(nib[0]) << 4)
+        o = 1
+    m = (n - o) & ~1
+    if m:
+        b0 = (d0 + o) >> 1
+        plane[b0 : b0 + m // 2] = nib[o : o + m : 2] | (
+            nib[o + 1 : o + m : 2] << 4
+        )
+    if o + m < n:
+        i = d0 + o + m
+        plane[i >> 1] = (plane[i >> 1] & 0xF0) | int(nib[-1])
+
+
+def decode_values_planar4_pair(data, n: int, bitpos0: int, bitpos1: int):
+    """Decode two independent n-value chunks in one interleaved native call
+    (eg_decode_planar4_multi round-robins the two chunks' windows so their
+    serial advance chains overlap in the out-of-order core).  Returns a
+    pair of (plane, exc_idx, exc_val, end_bitpos) tuples, exactly two
+    decode_values_planar4 results."""
+    assert n % 2 == 0, "planar4 needs an even value count"
+    buf = _as_u8(data)
+    lib = native.load()
+    cap = max(1024, n // 16)
+    while True:
+        planes = np.empty(n, np.uint8)
+        ei = np.empty(2 * cap, np.int32)
+        ev = np.empty(2 * cap, np.int32)
+        p = np.array([bitpos0, bitpos1], np.uint64)
+        cnts = np.zeros(2, np.uint64)
+        rc = lib.eg_decode_planar4_multi(
+            buf.ctypes.data, buf.size * 8, p.ctypes.data, 2, n,
+            planes.ctypes.data, ei.ctypes.data, ev.ctypes.data, cap,
+            cnts.ctypes.data,
+        )
+        if rc == -2:  # exception capacity; pathological content
+            cap *= 4
+            continue
+        if rc != 0:
+            raise EOFError("exp-golomb stream exhausted")
+        k0, k1 = int(cnts[0]), int(cnts[1])
+        half = n // 2
+        return (
+            (planes[:half], ei[:k0], ev[:k0], int(p[0])),
+            (planes[half:], ei[cap : cap + k1], ev[cap : cap + k1],
+             int(p[1])),
+        )
+
+
 def parallel_chunks(payload, values_per_chunk: int, n_chunks: int,
+                    decode_fn, workers: int | None = None,
                     positions: list[int] | None = None):
     """Entropy-decode consecutive fixed-size chunks GOP-parallel, in order.
 
-    A worker pool applies ``decode_values_planar4(payload, n, bitpos)`` to
-    several chunks concurrently (the C decoder releases the GIL) and this
-    generator yields each result tuple in stream order; raises EOFError if
+    A worker pool applies ``decode_fn(payload, n, bitpos)`` to several
+    chunks concurrently (the C decoders release the GIL) and this generator
+    yields each chunk's result tuple in stream order; raises EOFError if
     the stream ends early.
 
-    ``positions`` (optional, len >= n_chunks): known chunk START bit
-    offsets from a stream index, so every core decodes.  Without them the
-    caller thread runs eg_scan ahead of the workers (boundaries are ~3x
-    cheaper than decoding) and one core is left to it.
+    Without ``positions``, a planar4 stream takes the fused speculative
+    decode; failing that (a small payload, truncation), the speculative
+    parallel scan gives the positions; failing that, the caller thread runs
+    eg_scan ahead of the workers and one core is left to it.
+
+    ``positions`` (len >= n_chunks): known chunk start bit offsets, from a
+    stream index or the speculative scan.  Every core then decodes; planar4
+    chunks are decoded two per task through the pair decoder when there
+    are at least two chunks for every worker.  With fewer, pairs would
+    leave workers idle (8 GOPs on 8 cores would run on 4), so each chunk
+    is a task of its own, as the JAX package does not do: the tuples are
+    the same either way.
     """
+    if positions is None:
+        if decode_fn is decode_values_planar4:
+            fused = speculative_planar4_chunks(
+                payload, values_per_chunk, n_chunks, workers
+            )
+            if fused is not None:
+                yield from fused
+                return
+        positions = speculative_positions(
+            payload, values_per_chunk, n_chunks, workers
+        )
     have_index = positions is not None
-    cores = os.cpu_count() or 2
-    workers = max(1, min(n_chunks, cores if have_index else cores - 1))
+    if workers is None:
+        cores = os.cpu_count() or 2
+        workers = max(1, min(n_chunks, cores if have_index else cores - 1))
     if have_index:
         if len(positions) < n_chunks:
             raise ValueError(
@@ -109,6 +608,8 @@ def parallel_chunks(payload, values_per_chunk: int, n_chunks: int,
         positions = list(positions[:n_chunks])
     else:
         positions = [0]
+    pair = (have_index and decode_fn is decode_values_planar4
+            and values_per_chunk % 2 == 0 and n_chunks >= 2 * workers)
     futs: dict = {}
     with ThreadPoolExecutor(workers) as pool:
         def ensure(k: int) -> None:
@@ -118,14 +619,29 @@ def parallel_chunks(payload, values_per_chunk: int, n_chunks: int,
                 positions.append(
                     scan_values(payload, values_per_chunk, positions[-1])
                 )
-            futs[k] = pool.submit(
-                decode_values_planar4, payload, values_per_chunk, positions[k]
-            )
+            if pair and not (k & 1) and k + 1 < n_chunks:
+                while len(positions) <= k + 1:
+                    positions.append(
+                        scan_values(payload, values_per_chunk, positions[-1])
+                    )
+                f = pool.submit(
+                    decode_values_planar4_pair, payload, values_per_chunk,
+                    positions[k], positions[k + 1],
+                )
+                futs[k] = (f, 0)
+                futs[k + 1] = (f, 1)
+            else:
+                futs[k] = (pool.submit(
+                    decode_fn, payload, values_per_chunk, positions[k]
+                ), None)
 
+        lookahead = (2 * workers + 2) if pair else (workers + 1)
         for c in range(n_chunks):
-            for k in range(c, min(c + workers + 1, n_chunks)):
+            for k in range(c, min(c + lookahead, n_chunks)):
                 ensure(k)
-            yield futs.pop(c).result()
+            f, part = futs.pop(c)
+            r = f.result()
+            yield r if part is None else r[part]
 
 
 class InflateSource:
@@ -233,6 +749,11 @@ class DeflateSink:
             packed, total_bits, self.carry_code, self.carry_bits
         )
         return self._z.compress(chunk) if chunk else b""
+
+    def push_values(self, values: np.ndarray) -> bytes:
+        """Host path: entropy-code values directly into the sink."""
+        payload, nbits = encode_values(values, bitpos=self.carry_bits)
+        return self.push_packed(np.frombuffer(payload, dtype=np.uint8), nbits)
 
     def finish(self) -> bytes:
         """Final partial byte (zero-padded) or a zero byte, then Z_FINISH —
@@ -344,6 +865,10 @@ class ParallelDeflateSink:
         if chunk:
             self._submit(chunk)
         return self._ready()
+
+    def push_values(self, values: np.ndarray) -> bytes:
+        payload, nbits = encode_values(values, bitpos=self.carry_bits)
+        return self.push_packed(np.frombuffer(payload, dtype=np.uint8), nbits)
 
     def finish(self) -> bytes:
         self._submit(bytes([_final_byte(self.carry_code, self.carry_bits)]))

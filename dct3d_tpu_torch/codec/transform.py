@@ -3,7 +3,8 @@
 The port's counterpart of ``dct3d_tpu.codec.transform`` (reference profile,
 float32, any cube geometry):
 
-  encode step:  (T, H, W) uint8
+  encode step:  (T, H, W) uint8 (transport_delta: wrapping temporal
+                deltas, rebuilt GOP by GOP with a mod-256 prefix sum)
                 -> f32 cubes + exact int32 cube sums (K1 for 8x8x8 cubes,
                    ops/relayout.py; codec/framing.py otherwise)
                 -> (num_cubes, cube) @ (cube, cube) f32 matmul
@@ -14,7 +15,8 @@ float32, any cube geometry):
                 -> next GOP's carry, on the device
   decode step:  nibble plane + exceptions + DC -> two f32 matmuls
                 -> clamp, truncating cast, cubes -> frames (K4 for 8x8x8
-                   cubes, framing otherwise)
+                   cubes, framing otherwise) (transport_delta: wrapping
+                   temporal deltas, GOP by GOP, for the host to undo)
 
 The large matmuls stay ``torch.matmul``, as the JAX package leaves them to
 XLA; full float32 (no TF32) keeps quantized-integer parity with the
@@ -55,10 +57,6 @@ def _check_supported(cfg: CodecConfig) -> None:
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             "only compute_dtype='float32' (ROADMAP Queue 1: bf16 profile)"
-        )
-    if cfg.transport_delta:
-        raise NotImplementedError(
-            "transport_delta is not ported (ROADMAP Queue 1: transport_delta)"
         )
 
 
@@ -134,15 +132,47 @@ def _cubes_and_sums(frames: torch.Tensor,
     return cubes.float(), cubes.sum(1, dtype=torch.int32)
 
 
+def _by_gop(frames: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
+    """(T, H, W) -> (T / gop, gop, H, W) view: transport deltas restart at
+    every GOP."""
+    t, h, w = frames.shape
+    return frames.reshape(t // cfg.gop_size, cfg.gop_size, h, w)
+
+
+def _undelta_frames(frames: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
+    """Rebuild frames shipped as wrapping uint8 temporal deltas: a mod-256
+    prefix sum over each GOP's frames, kept in uint8 (wrapping adds are the
+    mod)."""
+    return torch.cumsum(_by_gop(frames, cfg), 1, dtype=torch.uint8).reshape(frames.shape)
+
+
+def _frames_to_q(frames: torch.Tensor, enc_t: torch.Tensor,
+                 cfg: CodecConfig) -> torch.Tensor:
+    """Front half of every encode step: (T, H, W) uint8 frames, raw or
+    transport deltas, -> (num_cubes, cube) int32 quantized coefficients in
+    the column order of ``enc_t``."""
+    if cfg.transport_delta:
+        frames = _undelta_frames(frames, cfg)
+    cubes, sums = _cubes_and_sums(frames, cfg)
+    return _quantize(cubes, sums, enc_t, cfg)
+
+
 def _finish_frames(pixels: torch.Tensor, cfg: CodecConfig, height: int,
                    width: int) -> torch.Tensor:
     """(num_cubes, cube) f32 pixels -> clamp to [0, 255] (3dDCT.cl:256-262),
     truncating uint8 cast (decoder.c:30), (T, H, W) frames: K4 where it
-    covers the geometry, else framing's transpose."""
+    covers the geometry, else framing's transpose.  With transport_delta
+    the frames leave as wrapping temporal deltas, GOP by GOP (the host
+    undoes them with decoder._undelta)."""
     if relayout.supports(cfg, height, width):
-        return relayout.cubes_to_frames(pixels, height, width)
-    return framing.cubes_to_frames(pixels.clamp(0.0, 255.0).to(torch.uint8),
-                                   cfg, height, width)
+        frames = relayout.cubes_to_frames(pixels, height, width)
+    else:
+        frames = framing.cubes_to_frames(pixels.clamp(0.0, 255.0).to(torch.uint8),
+                                         cfg, height, width)
+    if cfg.transport_delta:
+        f = _by_gop(frames, cfg)
+        frames = torch.cat([f[:, :1], f[:, 1:] - f[:, :-1]], 1).reshape(frames.shape)
+    return frames
 
 
 def _quantize(cubes: torch.Tensor, sums: torch.Tensor, enc_t: torch.Tensor,
@@ -166,7 +196,9 @@ def _quantize(cubes: torch.Tensor, sums: torch.Tensor, enc_t: torch.Tensor,
 
 def quantize_step(frames: torch.Tensor, ctx: TransformContext) -> torch.Tensor:
     """(T, H, W) uint8 frames -> (num_cubes, cube) int32 quantized zigzag
-    coefficients, bit-identical to the float64 oracle's at test sizes."""
+    coefficients, bit-identical to the float64 oracle's at test sizes.
+    The frames are raw whatever cfg.transport_delta says: the host encode
+    path sends them so, as the JAX package's does."""
     cubes, sums = _cubes_and_sums(frames, ctx.cfg)
     return _quantize(cubes, sums, ctx.enc_t, ctx.cfg)
 
@@ -183,7 +215,8 @@ class EncodedGOP(NamedTuple):
 
 def encode_step(frames: torch.Tensor, ctx: TransformContext,
                 carry_code: torch.Tensor, carry_bits: torch.Tensor) -> EncodedGOP:
-    """Encode a (T, H, W) uint8 frame batch into packed Exp-Golomb bytes.
+    """Encode a (T, H, W) uint8 frame batch (transport deltas when
+    cfg.transport_delta) into packed Exp-Golomb bytes.
 
     carry_code/carry_bits: the partial trailing byte of the previous call
     (0-d int64 tensors on the device, value right-aligned in carry_bits
@@ -196,7 +229,7 @@ def encode_step(frames: torch.Tensor, ctx: TransformContext,
     4) take bitpack.pack_bits (K5 + K3), with the carry as a leading
     pseudo-codeword, as the JAX package does.
     """
-    q = quantize_step(frames, ctx).reshape(-1)
+    q = _frames_to_q(frames, ctx.enc_t, ctx.cfg).reshape(-1)
     max_width = bitpack.max_codeword_bits(ctx.cfg.cube_size)
     if q.numel() % group_pack.GROUP == 0:
         packed, total_bits, tail_byte, overflow = bitpack.pack_values(

@@ -26,9 +26,12 @@ exception-index deltas int32, exception values int16).  Streams are zstd
 when cfg.turbo_codec == "zstd" and the zstandard module imports, else zlib
 at cfg.zlib_level; decode sniffs each stream's magic.
 
-Not ported yet (ROADMAP Queue 1): the sharded encoder and decoder, the RGB
-functions (only ``is_turbo_rgb_container`` is here, so that decode can
-name such a container) and checkpointing.
+Turbo RGB (``encode_turbo_rgb_video`` and its decoders) carries each
+channel as its own members, types 6/7/8, channel-major.  With
+``cfg.transport_delta`` the host sends wrapping temporal deltas and the
+decode undoes them, as in the reference profile.  Not ported yet (ROADMAP
+Queue 1, item 12): the sharded encoder and decoder; a ``mesh`` argument
+raises.
 """
 
 from __future__ import annotations
@@ -53,9 +56,9 @@ from ..parallel.multihost import (
     _member, split_members,
 )
 from . import entropy
-from .decoder import _dispatch_planar4, _to_host_async, decode_video
-from .encoder import encode_video
-from .transform import TransformContext, _cubes_and_sums, _quantize, to_device
+from .decoder import _dispatch_planar4, _to_host_async, _undelta, decode_video
+from .encoder import _deltas, encode_video
+from .transform import TransformContext, _frames_to_q, to_device
 
 try:  # optional: smaller and faster than DEFLATE on the nibble plane
     import zstandard as _zstd
@@ -66,8 +69,7 @@ except ImportError:  # pragma: no cover
 _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
 
 MEMBER_TURBO = 5
-#: turbo RGB channel members (red, green, blue): written by the JAX
-#: package's encode_turbo_rgb_video, not decoded by the port yet
+#: turbo RGB channel members (red, green, blue)
 MEMBER_TURBO_RGB = (6, 7, 8)
 
 #: Per-GOP escape hatch for content the nibble wire degenerates on
@@ -77,7 +79,12 @@ MEMBER_TURBO_RGB = (6, 7, 8)
 #: is smaller, tagged with the reference member type.
 FALLBACK_EXC_FRAC = 0.02
 #: turbo member type -> its reference-profile fallback member type
-_FALLBACK_TYPE = {MEMBER_TURBO: MEMBER_TEMPORAL}
+_FALLBACK_TYPE = {
+    MEMBER_TURBO: MEMBER_TEMPORAL,
+    MEMBER_TURBO_RGB[0]: MEMBER_RED,
+    MEMBER_TURBO_RGB[1]: MEMBER_GREEN,
+    MEMBER_TURBO_RGB[2]: MEMBER_BLUE,
+}
 _REF_TYPES = frozenset(_FALLBACK_TYPE.values())
 
 _RETRY_SLOTS = 256  # exception slots per group that cannot overflow
@@ -154,14 +161,14 @@ def _plane_and_tables(qp: torch.Tensor, slots: int,
 def encode_step_turbo(frames: torch.Tensor, ctx: TransformContext,
                       slots: int = exceptions.DEFAULT_SLOTS,
                       wire: bool = False) -> TurboGOP:
-    """(T, H, W) uint8 frames on ctx.device -> TurboGOP.
+    """(T, H, W) uint8 frames on ctx.device (transport deltas when
+    cfg.transport_delta) -> TurboGOP.
 
     The quantized integers are those of the reference profile
     (transform.quantize_step) with the columns in pair order: the
     pair-permuted matrix has the same column values, and DC takes the same
     exact quantizer."""
-    cubes, sums = _cubes_and_sums(frames, ctx.cfg)
-    qp = _quantize(cubes, sums, ctx.enc_t_pair, ctx.cfg)
+    qp = _frames_to_q(frames, ctx.enc_t_pair, ctx.cfg)
     return _plane_and_tables(qp, slots, wire=wire)
 
 
@@ -330,7 +337,9 @@ class TurboEncoder:
         device=None,
         slots: int = exceptions.DEFAULT_SLOTS,
         max_inflight: int = 6,
+        member_type: int = MEMBER_TURBO,
     ) -> None:
+        self.member_type = member_type
         self.cfg = cfg or CodecConfig()
         self.cfg.validate_geometry(width, height)
         self.width = width
@@ -381,7 +390,7 @@ class TurboEncoder:
         plane, dc, lidx, vals, counts = self._readback(gop, frames_dev, done)
         idx, val = _expand_pair(lidx, vals, counts, self.cfg.cube_size)
         payload = _member_payload(plane, dc, idx, val, self.cfg, wire=True)
-        return _pick_member(raw, payload, idx.size, t, MEMBER_TURBO,
+        return _pick_member(raw, payload, idx.size, t, self.member_type,
                             self.cfg, self.ctx, self._warn_fallback)
 
     def push(self, frames: np.ndarray) -> bytes:
@@ -397,7 +406,8 @@ class TurboEncoder:
             raise ValueError("frame geometry mismatch")
         for i in range(0, t, gop):
             raw = frames[i : i + gop]
-            frames_dev = to_device(raw, self.device)
+            frames_dev = to_device(
+                _deltas(raw) if self.cfg.transport_delta else raw, self.device)
             step = encode_step_turbo(frames_dev, self.ctx, self.slots,
                                      wire=True)
             done = None
@@ -427,6 +437,14 @@ class TurboEncoder:
         return out
 
 
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh encodes are not ported (ROADMAP Queue 1, item 12: "
+            "multi-GPU sharding)"
+        )
+
+
 def encode_turbo_video(
     frames: np.ndarray,
     cfg: CodecConfig | None = None,
@@ -440,6 +458,35 @@ def encode_turbo_video(
     t = frames.shape[0] - frames.shape[0] % cfg.gop_size
     enc = TurboEncoder(frames.shape[2], frames.shape[1], cfg, ctx, device)
     return enc.push(frames[:t]) + enc.finish()
+
+
+def encode_turbo_rgb_video(
+    frames: np.ndarray,
+    cfg: CodecConfig | None = None,
+    ctx: TransformContext | None = None,
+    mesh=None,
+    device=None,
+) -> bytes:
+    """(T, H, W, 3) interleaved RGB -> turbo container on ``device`` (or
+    ``ctx.device``): per channel, one type-6/7/8 member per GOP
+    (channel-major member order, like the reference-profile RGB
+    container).  ``mesh`` is not ported (item 12) and raises."""
+    _no_mesh(mesh)
+    cfg = cfg or CodecConfig()
+    if frames.ndim != 4 or frames.shape[-1] != 3:
+        raise ValueError("expected (T, H, W, 3) interleaved RGB")
+    ctx = ctx or TransformContext(cfg, device)
+    align = cfg.gop_size
+    t = frames.shape[0] - frames.shape[0] % align
+    if t == 0:
+        raise ValueError(f"input shorter than one {align}-frame step")
+    out = []
+    for c, mtype in enumerate(MEMBER_TURBO_RGB):
+        enc = TurboEncoder(frames.shape[2], frames.shape[1], cfg, ctx,
+                           member_type=mtype)
+        plane = np.ascontiguousarray(frames[:t, :, :, c])
+        out.append(enc.push(plane) + enc.finish())
+    return b"".join(out)
 
 
 def is_turbo_container(members: Iterable[tuple[int, bytes, int]]) -> bool:
@@ -473,6 +520,12 @@ def _pool_size(n_members: int, inflate_workers: int | None) -> int:
     return inflate_workers or max(1, min(n_members, os.cpu_count() or 2))
 
 
+def _typed(member_type: int) -> tuple[int, int]:
+    """The member types a channel of ``member_type`` reads: its own and
+    its reference-profile fallback."""
+    return member_type, _FALLBACK_TYPE[member_type]
+
+
 def decode_turbo_container(
     data: bytes,
     width: int,
@@ -481,18 +534,19 @@ def decode_turbo_container(
     ctx: TransformContext | None = None,
     device=None,
     inflate_workers: int | None = None,
+    member_type: int = MEMBER_TURBO,
 ) -> np.ndarray:
     """Turbo container -> (T, H, W) uint8 on ``device`` (or ctx.device);
     pixels identical to the reference profile's decode of the same source.
+    ``member_type`` selects a turbo-RGB channel.
 
     The host stage is pure decompression, GOP-parallel on a pool; device
     steps overlap with it through a window of in-flight GOPs."""
     cfg = cfg or CodecConfig()
     ctx = ctx or TransformContext(cfg, device)
-    members = [m for m in split_members(data)
-               if m[2] in (MEMBER_TURBO, MEMBER_TEMPORAL)]
+    members = [m for m in split_members(data) if m[2] in _typed(member_type)]
     if not members:
-        raise ValueError(f"not a turbo container (no type-{MEMBER_TURBO} members)")
+        raise ValueError(f"not a turbo container (no type-{member_type} members)")
     with ThreadPoolExecutor(_pool_size(len(members), inflate_workers)) as pool:
         return _decode_members(members, pool, width, height, cfg, ctx)
 
@@ -507,8 +561,10 @@ def decode_turbo_range(
     ctx: TransformContext | None = None,
     device=None,
     inflate_workers: int | None = None,
+    member_type: int = MEMBER_TURBO,
 ) -> np.ndarray:
-    """Random-access decode of frames [start, stop) from a turbo container.
+    """Random-access decode of frames [start, stop) from a turbo container
+    (``member_type`` selects a turbo-RGB channel).
 
     Members are self-delimiting and independent (one GOP each), so only
     the covering members are decompressed and decoded.  Pixels are
@@ -521,7 +577,7 @@ def decode_turbo_range(
     a0 = first_a0 = 0
     saw_member = False
     for m in split_members(data):
-        if m[2] not in (MEMBER_TURBO, MEMBER_TEMPORAL):
+        if m[2] not in _typed(member_type):
             continue
         saw_member = True
         if a0 + m[0] > start and a0 < stop:
@@ -533,7 +589,7 @@ def decode_turbo_range(
             break
     if not saw_member:
         # Wrong container type, not truncation.
-        raise ValueError(f"not a turbo container (no type-{MEMBER_TURBO} members)")
+        raise ValueError(f"not a turbo container (no type-{member_type} members)")
     if a0 < stop:
         raise EOFError(
             f"container holds {a0} frames, range [{start}, {stop}) "
@@ -542,6 +598,51 @@ def decode_turbo_range(
     with ThreadPoolExecutor(_pool_size(len(covering), inflate_workers)) as pool:
         span = _decode_members(covering, pool, width, height, cfg, ctx)
     return span[start - first_a0 : stop - first_a0]
+
+
+def decode_turbo_rgb_video(
+    data: bytes,
+    width: int,
+    height: int,
+    cfg: CodecConfig | None = None,
+    ctx: TransformContext | None = None,
+    device=None,
+) -> np.ndarray:
+    """Turbo-RGB container -> (T, H, W, 3) uint8 on ``device`` (or
+    ctx.device): one split, one inflate pool shared by the three
+    channels."""
+    cfg = cfg or CodecConfig()
+    ctx = ctx or TransformContext(cfg, device)
+    members = split_members(data)
+    by_type = {t: [m for m in members if m[2] in _typed(t)]
+               for t in MEMBER_TURBO_RGB}
+    if not all(by_type.values()):
+        raise ValueError("not a turbo-rgb container (missing channels)")
+    with ThreadPoolExecutor(max(1, os.cpu_count() or 2)) as pool:
+        planes = [_decode_members(by_type[t], pool, width, height, cfg, ctx)
+                  for t in MEMBER_TURBO_RGB]
+    return np.stack(planes, axis=-1)
+
+
+def decode_turbo_rgb_range(
+    data: bytes,
+    width: int,
+    height: int,
+    start: int,
+    stop: int,
+    cfg: CodecConfig | None = None,
+    ctx: TransformContext | None = None,
+    device=None,
+) -> np.ndarray:
+    """Random-access decode of frames [start, stop) from a turbo-RGB
+    container -> (stop-start, H, W, 3): each channel skips its
+    non-covering members (decode_turbo_range per channel type)."""
+    cfg = cfg or CodecConfig()
+    ctx = ctx or TransformContext(cfg, device)
+    planes = [decode_turbo_range(data, width, height, start, stop, cfg, ctx,
+                                 member_type=t)
+              for t in MEMBER_TURBO_RGB]
+    return np.stack(planes, axis=-1)
 
 
 def _decode_members(members, pool, width, height, cfg, ctx) -> np.ndarray:
@@ -555,7 +656,7 @@ def _decode_members(members, pool, width, height, cfg, ctx) -> np.ndarray:
         a0, t, host, done = pending.popleft()
         if done is not None:
             done.synchronize()
-        out[a0 : a0 + t] = host.numpy()
+        out[a0 : a0 + t] = _undelta(host.numpy(), ctx.cfg)
 
     cube = cfg.cube_size
     lookahead = max(4, 2 * pool._max_workers)

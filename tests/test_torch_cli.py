@@ -30,7 +30,7 @@ T, H, W = 24, 48, 64
 CPU = ["--device", "cpu"]
 
 #: case -> (encode flags, geometry given to decode, decode flags, frames a
-#: raw stream needs)
+#: raw stream needs); a geometry of None is read from the .meta sidecar
 CASES = {
     "default": ([], (W, H), [], None),
     "no_index": (["--no-index"], (W, H), [], T),
@@ -40,7 +40,13 @@ CASES = {
     "block4_pad": (["--block", "4", "--pad"], (44, 28), ["--block", "4", "--crop", "42x26"],
                    None),
     "stdin_index": (["--index"], (W, H), [], None),
+    "transport_delta": (["--transport-delta"], (W, H), [], None),
+    "rgb": (["--rgb"], (W, H), [], None),
+    "rgb_turbo": (["--rgb", "--turbo", "--turbo-codec", "zlib"], (W, H), [], None),
+    "checkpoint": (["--checkpoint-every", "2", "--index"], None, [], None),
 }
+#: cases whose source is interleaved RGB (3 bytes a pixel)
+RGB = ("rgb", "rgb_turbo")
 
 
 class _Pipe:
@@ -62,6 +68,8 @@ def work(tmp_path_factory):
     odd = synthetic_video(T, 26, 42, seed=8)  # pads to 44x28 at 4x4 blocks
     odd_src = str(d / "odd.raw")
     rawvideo.write_video(odd_src, odd)
+    rgb = np.stack([synthetic_video(T, H, W, seed=s) for s in (4, 5, 6)], axis=-1)
+    rawvideo.write_video(str(d / "src.rgb"), rgb)
     return d, src, odd_src
 
 
@@ -86,15 +94,23 @@ def encoded(work):
     d, src, odd_src = work
     out = {}
     for case in CASES:
-        s = odd_src if case == "block4_pad" else src
+        s = {"block4_pad": odd_src, "rgb": str(d / "src.rgb"),
+             "rgb_turbo": str(d / "src.rgb")}.get(case, src)
         out[case] = (_encode(jcli.main, d, s, case, "jax"),
                      _encode(cli.main, d, s, case, "port", CPU))
     return out
 
 
+def _geometry(case):
+    """The command line's geometry of a decode: none after a checkpointing
+    encode (its .meta sidecar gives it)."""
+    geo = CASES[case][1]
+    return [] if geo is None else [str(geo[0]), str(geo[1])]
+
+
 def _decode(main, path, case, out, extra=()):
-    _, (w, h), flags, frames = CASES[case]
-    argv = ["decode", path, out, str(w), str(h)]
+    _, _, flags, frames = CASES[case]
+    argv = ["decode", path, out, *_geometry(case)]
     if frames is not None:
         argv.append(str(frames))
     assert main([*argv, *flags, *extra]) == 0
@@ -122,6 +138,9 @@ def test_files_byte_equal_jax(encoded, case):
     assert os.path.exists(pfile + ".idx") == (case == "parity_index")
     if case == "parity_index":
         assert open(jfile + ".idx", "rb").read() == open(pfile + ".idx", "rb").read()
+    assert os.path.exists(pfile + ".meta") == (case == "checkpoint")
+    if case == "checkpoint":
+        assert open(jfile + ".meta", "rb").read() == open(pfile + ".meta", "rb").read()
     head = open(pfile, "rb").read(4)
     assert (head == b"D3MH") == (case not in ("no_index", "parity", "parity_index"))
 
@@ -135,7 +154,7 @@ def test_cross_decode(decoded, case):
     np.testing.assert_array_equal(decoded[case, "jax", "port"], jax)
     _, _, flags, _ = CASES[case]
     w, h = (42, 26) if "--crop" in flags else (W, H)
-    assert port.size == T * w * h
+    assert port.size == T * w * h * (3 if case in RGB else 1)
     diff = np.abs(port.astype(np.int16) - jax)
     assert diff.max() <= 1 and (diff > 0).mean() < 0.01
 
@@ -143,14 +162,13 @@ def test_cross_decode(decoded, case):
 @pytest.mark.parametrize("case", list(CASES))
 def test_range_equals_slice(work, encoded, decoded, case):
     d = work[0]
-    _, (w, h), flags, _ = CASES[case]
+    _, _, flags, _ = CASES[case]
     out = str(d / f"{case}.range.raw")
-    assert cli.main(["decode", encoded[case][1], out, str(w), str(h), "--range", "5:19",
+    assert cli.main(["decode", encoded[case][1], out, *_geometry(case), "--range", "5:19",
                      *flags, *CPU]) == 0
     full = decoded[case, "port", "port"]
-    fw, fh = (42, 26) if "--crop" in flags else (w, h)
-    np.testing.assert_array_equal(np.fromfile(out, np.uint8),
-                                  full[5 * fw * fh : 19 * fw * fh])
+    px = ((42 * 26) if "--crop" in flags else (W * H)) * (3 if case in RGB else 1)
+    np.testing.assert_array_equal(np.fromfile(out, np.uint8), full[5 * px : 19 * px])
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -324,7 +342,23 @@ def test_png_and_y4m_input_and_y4m_output(tmp_path):
     (["--transport-delta"], 7), (["--dtype", "bfloat16"], 8), (["--dtype", "bf16"], 8),
 ])
 def test_unported_flags_exit_2(work, tmp_path, capsys, argv, item):
+    """The flags of items still to port exit 2 and name their item; those
+    of items 7 and 11, ported since, encode the JAX CLI's file and decode
+    it with the same flags, naming no item."""
     _, src, _ = work
+    if item in (7, 11):
+        files = []
+        for main, extra, tag in ((jcli.main, [], "j"), (cli.main, CPU, "p")):
+            out = str(tmp_path / f"o.{tag}")
+            assert main(["encode", src, out, str(W), str(H), *argv, *extra]) == 0
+            files.append(open(out, "rb").read())
+        assert files[0] == files[1]
+        dec = str(tmp_path / "d.raw")
+        assert cli.main(["decode", out, dec, str(W), str(H), *argv, *CPU]) == 0
+        assert os.path.getsize(dec) == os.path.getsize(src) - os.path.getsize(src) % (
+            8 * W * H * (3 if argv == ["--rgb"] else 1))
+        assert "item" not in capsys.readouterr().err
+        return
     for cmd in ("encode", "decode"):
         assert cli.main([cmd, src, str(tmp_path / "o"), str(W), str(H), *argv, *CPU]) == 2
         assert f"item {item}" in capsys.readouterr().err
@@ -332,25 +366,56 @@ def test_unported_flags_exit_2(work, tmp_path, capsys, argv, item):
         assert cli.main(["sweep", "synthetic", "16", "16", "8", *argv, *CPU]) == 2
 
 
+@pytest.mark.parametrize("turbo", [False, True], ids=["reference", "turbo"])
+def test_checkpoint_rerun_resumes_equal_jax(work, encoded, tmp_path, capsys, turbo):
+    """`--checkpoint-every 2` run twice by the port resumes and leaves the
+    file as it was; a file the JAX CLI began on the first 16 frames of the
+    source resumes in the port to the JAX CLI's uninterrupted file."""
+    _, src, _ = work
+    flags = ["--checkpoint-every", "2", *(["--turbo", "--turbo-codec", "zlib"] if turbo else [])]
+    whole = str(tmp_path / "whole.j")
+    assert jcli.main(["encode", src, whole, str(W), str(H), *flags]) == 0
+    out = str(tmp_path / "o.p")
+    for _ in range(2):
+        assert cli.main(["encode", src, out, str(W), str(H), *flags, *CPU]) == 0
+    assert "resuming at frame 24" in capsys.readouterr().out
+    assert open(out, "rb").read() == open(whole, "rb").read()
+    half = str(tmp_path / "half.raw")
+    rawvideo.write_video(half, rawvideo.read_video(src, W, H, 16))
+    began = str(tmp_path / "began")
+    assert jcli.main(["encode", half, began, str(W), str(H), *flags]) == 0
+    assert cli.main(["encode", src, began, str(W), str(H), *flags, *CPU]) == 0
+    assert "resuming at frame 16" in capsys.readouterr().out
+    assert open(began, "rb").read() == open(whole, "rb").read()
+    assert open(began + ".meta", "rb").read() == open(whole + ".meta", "rb").read()
+
+
 def test_unported_containers_exit_2(tmp_path, capsys):
-    """RGB and turbo-RGB containers (written by the JAX CLI) and a .meta
-    sidecar (written by checkpointing encodes) name item 11."""
+    """RGB and turbo-RGB containers (written by the JAX CLI with its zstd
+    default where zstandard imports) and a checkpointed container with
+    its .meta sidecar decode in the port, with and without --range, to the
+    JAX CLI's pixels within 1 LSB; a container of unknown member types
+    still exits 2."""
     from dct3d_tpu.io import synthetic
 
     src = str(tmp_path / "c.rgb")
     synthetic.capture(src, 8, 16, 16, rgb=True)
-    for flags in ([], ["--turbo"]):
-        enc = str(tmp_path / f"c{len(flags)}.bin")
-        assert jcli.main(["encode", src, enc, "16", "16", "--rgb", *flags]) == 0
-        for extra in ([], ["--range", "0:8"]):
-            assert cli.main(["decode", enc, str(tmp_path / "o"), "16", "16", *extra, *CPU]) == 2
-            assert "item 11" in capsys.readouterr().err
     plain = str(tmp_path / "p.raw")
     synthetic.capture(plain, 8, 16, 16)
-    ck = str(tmp_path / "ck.bin")
-    assert jcli.main(["encode", plain, ck, "16", "16", "--checkpoint-every", "1"]) == 0
-    assert cli.main(["decode", ck, str(tmp_path / "o"), "16", "16", *CPU]) == 2
-    assert "item 11" in capsys.readouterr().err
+    for name, inp, flags in (("rgb", src, ["--rgb"]), ("trgb", src, ["--rgb", "--turbo"]),
+                             ("ck", plain, ["--checkpoint-every", "1"])):
+        enc = str(tmp_path / f"{name}.bin")
+        assert jcli.main(["encode", inp, enc, "16", "16", *flags]) == 0
+        geo = [] if name == "ck" else ["16", "16"]
+        for extra in ([], ["--range", "0:8"]):
+            outs = []
+            for main, cpu, tag in ((jcli.main, [], "j"), (cli.main, CPU, "p")):
+                out = str(tmp_path / f"{name}.{tag}.raw")
+                assert main(["decode", enc, out, *geo, *extra, *cpu]) == 0
+                outs.append(np.fromfile(out, np.uint8))
+            d = np.abs(outs[1].astype(np.int16) - outs[0])
+            assert outs[1].size == 8 * 16 * 16 * (1 if name == "ck" else 3) and d.max() <= 1
+    assert "item 11" not in capsys.readouterr().err
     bad = str(tmp_path / "bad.bin")
     with open(bad, "wb") as f:
         f.write(multihost._member(b"x", 8, 9))

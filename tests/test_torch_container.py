@@ -205,14 +205,18 @@ def test_decode_auto_routes_like_jax(forms, box, ctx, form):
 
 
 def test_decode_auto_refuses_what_is_not_ported(clip, forms, ctx):
+    """RGB and turbo-RGB containers of the JAX package route to the port's
+    RGB decoders (ported since): (T, H, W, 3) pixels within 1 LSB of the
+    JAX decode_auto's, ranges equal to the slices.  What no encoder
+    writes, or a call with no device, still raises."""
     rgb = np.stack([synthetic_video(8, 16, 16, seed=s) for s in (4, 5, 6)], axis=-1)
     jcfg = j_config.CodecConfig(turbo_codec="zlib")
     for data in (j_rgb_codec.encode_rgb_video(rgb, jcfg),
                  j_turbo.encode_turbo_rgb_video(rgb, jcfg)):
-        for call in (lambda: decode_auto(data, 16, 16, ctx=ctx),
-                     lambda: decode_auto_range(data, 16, 16, 0, 8, ctx=ctx)):
-            with pytest.raises(NotImplementedError, match="item 11"):
-                call()
+        got = decode_auto(data, 16, 16, ctx=ctx)
+        assert got.shape == rgb.shape
+        _near(got, j_auto.decode_auto(data, 16, 16))
+        np.testing.assert_array_equal(decode_auto_range(data, 16, 16, 2, 7, ctx=ctx), got[2:7])
     with pytest.raises(ValueError, match="headerless"):
         decode_auto(forms["raw"][0], W, H, ctx=ctx)
     with pytest.raises(ValueError, match="unrecognized"):
@@ -273,6 +277,33 @@ def test_streaming_decoder_batches(box, ctx):
     out = [dec.try_decode(), dec.try_decode(), dec.try_decode()]
     assert [o.shape[0] for o in out[:2]] == [16, 8] and out[2] is None
     np.testing.assert_array_equal(np.concatenate(out[:2]), box["plain"])
+
+
+@pytest.mark.parametrize("chunk", [97, 1 << 20])
+def test_transport_delta_containers_and_streaming_decode(clip, box, chunk):
+    """The delta wire leaves every container as it is: the turbo container
+    equals the plain one and the JAX package's delta one (tests/
+    test_turbo.py:163); the streaming decoder and the container decoders
+    undo the device's deltas GOP by GOP to the plain pixels."""
+    cfg = CodecConfig(deflate_workers=2, transport_delta=True, turbo_codec="zlib")
+    dctx = TransformContext(cfg, "cpu")
+    plain_cfg = CodecConfig(turbo_codec="zlib")
+    tdata = encode_turbo_video(clip, cfg, dctx)
+    assert tdata == encode_turbo_video(clip, plain_cfg, device="cpu")
+    assert tdata == j_turbo.encode_turbo_video(
+        clip, j_config.CodecConfig(transport_delta=True, turbo_codec="zlib"))
+    np.testing.assert_array_equal(decode_auto(tdata, W, H, ctx=dctx), box["plain"])
+    np.testing.assert_array_equal(decode_auto_range(tdata, W, H, 5, 21, ctx=dctx),
+                                  box["plain"][5:21])
+    np.testing.assert_array_equal(decode_auto(box["data"], W, H, ctx=dctx), box["plain"])
+    stream = box["stream"]
+    chunks = [stream[i : i + chunk] for i in range(0, len(stream), chunk)]
+    got = np.concatenate(list(decode_stream(iter(chunks), W, H, T, cfg, dctx)))
+    np.testing.assert_array_equal(got, box["plain"])
+    dec = StreamingDecoder(W, H, cfg, dctx, gops_per_batch=3)
+    dec.feed(stream)
+    dec.feed_eof()
+    np.testing.assert_array_equal(dec.try_decode(), box["plain"])
 
 
 def test_gop_positions_from_port_ends_equal_scan(box):

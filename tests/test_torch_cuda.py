@@ -423,3 +423,82 @@ def test_two_members_decoded_at_once_on_card(dev):
     np.testing.assert_array_equal(together, one_by_one)
     np.testing.assert_array_equal(
         together, multihost.decode_multihost_container(data, 72, 48, workers=1, ctx=ctx))
+
+
+def test_wrapping_uint8_cumsum_on_card(dev):
+    """The transport-delta rebuild, torch.cumsum in uint8 on the card,
+    wraps mod 256 exactly as numpy's uint8 cumsum does, GOP by GOP."""
+    rng = np.random.default_rng(21)
+    deltas = rng.integers(0, 256, (16, 40, 72), dtype=np.uint8)
+    got = transform._undelta_frames(torch.from_numpy(deltas).to(dev), CodecConfig())
+    want = np.concatenate([np.cumsum(deltas[g : g + 8], axis=0, dtype=np.uint8)
+                           for g in (0, 8)])
+    assert got.dtype == torch.uint8 and np.array_equal(got.cpu().numpy(), want)
+
+
+def test_delta_and_host_encode_on_card_equal_cpu(dev):
+    """transport_delta and the host encode (device_pack=False) on the card
+    write the CPU path's plain stream; the delta decode on the card gives
+    the card's plain decode exactly."""
+    clip = synthetic_video(24, 48, 72, seed=8)
+    plain = encode_video(clip, device="cpu")
+    dcfg = CodecConfig(transport_delta=True)
+    kernels.LAUNCHES.clear()
+    assert encode_video(clip, dcfg, device=dev) == plain
+    assert kernels.LAUNCHES["frames_to_cubes"] > 0 and kernels.LAUNCHES["splice"] > 0
+    enc = StreamingEncoder(72, 48, device=dev, device_pack=False)
+    assert enc.push(clip) + enc.finish() == plain
+    assert decode_video(plain, 72, 48, 24, dcfg, device=dev).tobytes() == \
+        decode_video(plain, 72, 48, 24, device=dev).tobytes()
+
+
+def test_speculative_decode_on_card_equals_cpu(dev, monkeypatch):
+    """decode_video with no positions (the fused speculative decode, its
+    segment minimum lowered to this payload) and decode_frame_range's
+    prefix skip on the card equal the indexed decode on the card; pixels
+    within 1 LSB of the CPU's on < 1%."""
+    monkeypatch.setattr(entropy, "_SPEC_MIN_SEG", 2048)
+    clip = synthetic_video(48, 64, 96, seed=9)
+    enc = StreamingEncoder(96, 64, device="cpu")
+    data = enc.push(clip) + enc.finish()
+    positions = [0] + enc.gop_bit_ends[:-1]
+    indexed = decode_video(data, 96, 64, 48, device=dev, positions=positions)
+    np.testing.assert_array_equal(decode_video(data, 96, 64, 48, device=dev), indexed)
+    from dct3d_tpu_torch import decode_frame_range
+
+    np.testing.assert_array_equal(
+        decode_frame_range(data, 96, 64, 19, 41, device=dev, entropy_workers=16),
+        indexed[19:41])
+    d = np.abs(indexed.astype(np.int16) - decode_video(data, 96, 64, 48, device="cpu"))
+    assert d.max() <= 1 and (d > 0).mean() < 0.01
+
+
+def test_rgb_and_checkpoint_on_card_equal_cpu(dev, tmp_path):
+    """RGB, turbo-RGB and checkpointed containers written on the card
+    equal the CPU path's bytes; the RGB decodes on the card equal their
+    per-channel decodes on the card."""
+    from dct3d_tpu_torch import (
+        CheckpointingEncoder, decode_rgb_video, decode_turbo_rgb_video, encode_rgb_video,
+        encode_turbo_rgb_video,
+    )
+
+    rgb = np.stack([synthetic_video(16, 48, 72, seed=s) for s in (1, 2, 3)], axis=-1)
+    cfg = CodecConfig(turbo_codec="zlib")
+    box = encode_rgb_video(rgb, cfg, index=True, device=dev)
+    assert box == encode_rgb_video(rgb, cfg, index=True, device="cpu")
+    tbox = encode_turbo_rgb_video(rgb, cfg, device=dev)
+    assert tbox == encode_turbo_rgb_video(rgb, cfg, device="cpu")
+    got = decode_rgb_video(box, 72, 48, cfg, device=dev)
+    for c in range(3):
+        np.testing.assert_array_equal(
+            got[..., c], decode_video(encode_video(rgb[..., c], cfg, device="cpu"), 72, 48, 16,
+                                      cfg, device=dev))
+    np.testing.assert_array_equal(decode_turbo_rgb_video(tbox, 72, 48, cfg, device=dev), got)
+    files = []
+    for k, d in enumerate((dev, "cpu")):
+        p = str(tmp_path / f"{k}.d3v")
+        with CheckpointingEncoder(p, 72, 48, cfg, checkpoint_gops=1, index=True,
+                                  device=d) as ck:
+            ck.push(rgb[..., 0])
+        files.append(open(p, "rb").read())
+    assert files[0] == files[1]

@@ -22,6 +22,8 @@ from conftest import synthetic_video
 from dct3d_tpu import config as j_config
 from dct3d_tpu import metrics as j_metrics
 from dct3d_tpu import profiling as j_profiling
+from dct3d_tpu.codec import checkpoint as j_checkpoint
+from dct3d_tpu.codec import decoder as j_decoder
 from dct3d_tpu.codec import entropy as j_entropy
 from dct3d_tpu.codec import transform as j_transform
 from dct3d_tpu.codec import turbo as j_turbo
@@ -38,7 +40,7 @@ from dct3d_tpu.ops import quant as j_quant
 from dct3d_tpu.ops import zigzag as j_zigzag
 from dct3d_tpu.parallel import multihost as j_multihost
 from dct3d_tpu_torch import config, metrics, profiling
-from dct3d_tpu_torch.codec import encoder, entropy, transform, turbo
+from dct3d_tpu_torch.codec import checkpoint, decoder, encoder, entropy, transform, turbo
 from dct3d_tpu_torch.io import pad, png, rawvideo, render, rgb, synthetic, y4m
 from dct3d_tpu_torch.ops import dct, exceptions, quant, zigzag
 from dct3d_tpu_torch.parallel import multihost
@@ -205,8 +207,8 @@ def test_turbo_constants_and_workers_equal():
     assert turbo.MEMBER_TURBO == j_turbo.MEMBER_TURBO
     assert turbo.FALLBACK_EXC_FRAC == j_turbo.FALLBACK_EXC_FRAC
     assert turbo._ZSTD_MAGIC == j_turbo._ZSTD_MAGIC
-    assert turbo._FALLBACK_TYPE.items() <= j_turbo._FALLBACK_TYPE.items()
-    assert turbo._REF_TYPES <= j_turbo._REF_TYPES
+    assert turbo._FALLBACK_TYPE == j_turbo._FALLBACK_TYPE
+    assert turbo._REF_TYPES == j_turbo._REF_TYPES
     assert exceptions.DEFAULT_SLOTS == j_exceptions.DEFAULT_SLOTS
     for w in (-1, 0, 1, 5):
         assert entropy.resolve_workers(w) == j_entropy.resolve_workers(w)
@@ -304,6 +306,89 @@ def test_inflate_source_equals_original(chunk):
     assert ours.try_read_planar4(n) is None
     with pytest.raises(ValueError, match="corrupt"):
         entropy.InflateSource().feed(b"\x78\xda garbage")
+
+
+def _values(seed: int, n: int) -> np.ndarray:
+    """Mostly small ints with wide outliers up to the 2^24 magnitudes of
+    27-bit and longer codewords."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(-4, 5, n)
+    wide = rng.random(n) < 0.05
+    v[wide] = rng.integers(-(1 << 24), 1 << 24, int(wide.sum()))
+    return v.astype(np.int32)
+
+
+@pytest.mark.parametrize("bitpos", range(8))
+def test_encode_values_equals_original(bitpos):
+    for n in (0, 1, 255, 4099):
+        vals = _values(bitpos + n, n)
+        assert entropy.encode_values(vals, bitpos) == j_entropy.encode_values(vals, bitpos)
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_push_values_equals_original(workers):
+    """Both sinks after carries of every length: the same bytes, carry and
+    sync offsets as the originals' push_values."""
+    cfg, jcfg = config.CodecConfig(deflate_workers=workers), j_config.CodecConfig(
+        deflate_workers=workers)
+    ours, theirs = entropy.make_sink(cfg), j_entropy.make_sink(jcfg)
+    got, want = [], []
+    for k in range(9):
+        vals = _values(k, 1000 + 37 * k)
+        got.append(ours.push_values(vals))
+        want.append(theirs.push_values(vals))
+        assert (ours.carry_code, ours.carry_bits) == (theirs.carry_code, theirs.carry_bits)
+    got.append(ours.finish())
+    want.append(theirs.finish())
+    assert b"".join(got) == b"".join(want)
+    assert ours.sync_offsets() == theirs.sync_offsets()
+    ours.close()
+    theirs.close()
+
+
+def test_speculative_helpers_equal_original():
+    """The tuning constants, and _pack_vals_into at every nibble offset
+    and length parity, equal the originals'."""
+    for name in ("_SPEC_REC_CAP", "_SPEC_CKPT_SHIFT", "_SPEC_MIN_SEG", "_SPEC_INTERLEAVE",
+                 "_SPEC_SEG_FACTOR"):
+        assert getattr(entropy, name) == getattr(j_entropy, name), name
+    rng = np.random.default_rng(12)
+    for d0 in range(4):
+        for n in (0, 1, 2, 7, 64):
+            vals = rng.integers(-20, 20, n).astype(np.int32)
+            plane = rng.integers(0, 256, 40, dtype=np.uint8)
+            a, b = plane.copy(), plane.copy()
+            entropy._pack_vals_into(a, d0, vals)
+            j_entropy._pack_vals_into(b, d0, vals)
+            np.testing.assert_array_equal(a, b)
+
+
+def test_undelta_equals_original():
+    """One GOP: the original's uint8 cumsum; several GOPs: the original
+    GOP by GOP (the deltas restart at every GOP); a cfg without
+    transport_delta leaves the frames as they are."""
+    cfg, jcfg = (config.CodecConfig(transport_delta=True),
+                 j_config.CodecConfig(transport_delta=True))
+    frames = np.random.default_rng(13).integers(0, 256, (24, 8, 16), dtype=np.uint8)
+    np.testing.assert_array_equal(decoder._undelta(frames[:8], cfg),
+                                  j_decoder._undelta(frames[:8], jcfg))
+    np.testing.assert_array_equal(
+        decoder._undelta(frames, cfg),
+        np.concatenate([j_decoder._undelta(frames[g : g + 8], jcfg) for g in (0, 8, 16)]))
+    assert decoder._undelta(frames, config.CodecConfig()) is frames
+    np.testing.assert_array_equal(encoder._deltas(decoder._undelta(frames[:8], cfg)),
+                                  frames[:8])
+
+
+def test_resume_info_equals_original(tmp_path):
+    """Complete, torn-header, torn-payload and foreign tails."""
+    m = multihost._member
+    body = m(b"abc", 8) + m(b"", 16, 5) + m(b"x" * 40, 8, 4)
+    for tail in (b"", b"D3MH\x01", m(b"y" * 30, 8)[:-7], b"XXXX" + bytes(20)):
+        p = str(tmp_path / "f")
+        with open(p, "wb") as f:
+            f.write(body + tail)
+        assert checkpoint.resume_info(p) == j_checkpoint.resume_info(p) == (32, len(body))
 
 
 def test_stage_timer_equals_original():
@@ -467,8 +552,9 @@ def test_port_imports_no_jax_subprocess():
             "dct3d_tpu_torch.profiling", "dct3d_tpu_torch.io.rawvideo",
             "dct3d_tpu_torch.io.png", "dct3d_tpu_torch.io.y4m",
             "dct3d_tpu_torch.io.synthetic", "dct3d_tpu_torch.io.rgb",
-            "dct3d_tpu_torch.io.render"} <= set(mods)
-    assert len(mods) >= 33
+            "dct3d_tpu_torch.io.render", "dct3d_tpu_torch.codec.rgb_codec",
+            "dct3d_tpu_torch.codec.checkpoint"} <= set(mods)
+    assert len(mods) >= 35
 
 
 def test_cli_runs_without_jax_subprocess(tmp_path):

@@ -139,17 +139,71 @@ def test_truncated_and_corrupt_streams_raise(ctx, streams):
     {"cfg": CodecConfig(compute_dtype="bfloat16")},
     {"cfg": CodecConfig(transport_delta=True)},
 ], ids=["bf16", "transport_delta"])
-def test_scope_guards_raise(kwargs):
-    frames = np.zeros((8, 16, 16), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        encode_video(frames, device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode_video(b"", 16, 16, 8, device="cpu", **kwargs)
+def test_scope_guards_raise(clip, ctx, streams, kwargs):
+    """bf16 is not ported and raises.  transport_delta is: the guard is
+    gone, and the delta wire leaves the stream and the pixels as they are
+    (tests/test_pipeline.py:241), in both sinks, equal to the JAX
+    package's delta encode."""
+    if kwargs["cfg"].compute_dtype != "float32":
+        frames = np.zeros((8, 16, 16), np.uint8)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            encode_video(frames, device="cpu", **kwargs)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            decode_video(b"", 16, 16, 8, device="cpu", **kwargs)
+        return
+    for workers in (0, 2):
+        cfg = CodecConfig(deflate_workers=workers, transport_delta=True)
+        enc = StreamingEncoder(W, H, cfg, device="cpu")
+        data = enc.push(clip) + enc.finish()
+        assert data == streams["port", workers]
+        assert (enc.gop_bit_ends, enc.gop_sync_offsets) == streams["index", workers]
+        assert data == j_encoder.encode_video(
+            clip, j_config.CodecConfig(deflate_workers=workers, transport_delta=True))
+    np.testing.assert_array_equal(decode_video(data, W, H, T, device="cpu", **kwargs),
+                                  decode_video(data, W, H, T, ctx=ctx))
 
 
-def test_device_pack_false_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamingEncoder(16, 16, device="cpu", device_pack=False)
+@pytest.mark.parametrize("workers", [0, 2])
+def test_device_pack_false_raises(clip, ctx, streams, workers):
+    """device_pack=False is ported: the host Exp-Golomb encode of the
+    card's ints equals the device-packed payload and the JAX package's
+    host path byte for byte (tests/test_pipeline.py:130).  Like the JAX
+    host path it records no GOP bit ends and marks no sync points (ROADMAP
+    Queue 3, R5)."""
+    enc = StreamingEncoder(W, H, CodecConfig(deflate_workers=workers), ctx, device_pack=False)
+    data = enc.push(clip) + enc.finish()
+    jenc = j_encoder.StreamingEncoder(W, H, j_config.CodecConfig(deflate_workers=workers),
+                                      device_pack=False)
+    assert data == jenc.push(clip) + jenc.finish()
+    assert zlib.decompress(data) == zlib.decompress(streams["port", 0])
+    if workers == 0:
+        assert data == streams["port", 0]
+    assert enc.gop_bit_ends == jenc.gop_bit_ends == []
+    assert enc.gop_sync_offsets is None and jenc.gop_sync_offsets is None
+    assert enc.frames_encoded == T
+
+
+BLOCK4 = {"block_w": 4, "block_h": 4, "block_d": 4}
+
+
+@pytest.mark.parametrize("bits", range(8))
+@pytest.mark.parametrize("blocks", ["8x8x8", "4x4x4"])
+def test_host_encode_equals_device_after_carries(blocks, bits):
+    """After a carry of 0..7 bits, the host encode writes the device pack's
+    stream, at 8x8x8 and at 4x4x4 cubes on a geometry whose GOPs end in
+    partial 256-value groups (K5's route)."""
+    cfg = CodecConfig(**(BLOCK4 if blocks == "4x4x4" else {}))
+    h, w = (36, 36) if blocks == "4x4x4" else (H, W)
+    if blocks == "4x4x4":
+        assert (h * w * cfg.gop_size) % 256  # partial groups
+    frames = synthetic_video(16, h, w, seed=bits)
+    ctx = TransformContext(cfg, "cpu")
+    carry = (int(np.random.default_rng(bits).integers(0, 1 << bits)), bits)
+    out = []
+    for device_pack in (True, False):
+        enc = StreamingEncoder(w, h, cfg, ctx, carry=carry, device_pack=device_pack)
+        out.append(enc.push(frames) + enc.finish())
+    assert out[0] == out[1]
 
 
 def test_entry_points_need_a_device():

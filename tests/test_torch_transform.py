@@ -124,8 +124,31 @@ def test_lowered_matmul_precision_raises(contexts):
     CodecConfig(transport_delta=True),
 ], ids=["bf16", "transport_delta"])
 def test_context_scope_guards(cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transform.TransformContext(cfg, "cpu")
+    """bf16 still raises; a transport_delta context builds, and its device
+    steps take and give wrapping temporal deltas: the front half rebuilds
+    the frames GOP by GOP (the ints equal quantize_step's on the raw
+    frames), and _finish_frames emits one GOP's deltas as the JAX
+    package's does."""
+    if cfg.compute_dtype != "float32":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            transform.TransformContext(cfg, "cpu")
+        return
+    ctx = transform.TransformContext(cfg, "cpu")
+    frames = _noise(16, 32, 48)
+    delta = np.concatenate([
+        np.concatenate([g[:1], np.diff(g, axis=0)]) for g in (frames[:8], frames[8:])])
+    q = transform._frames_to_q(torch.from_numpy(delta), ctx.enc_t, cfg)
+    np.testing.assert_array_equal(q.numpy(), transform.quantize_step(
+        torch.from_numpy(frames), ctx).numpy())
+    np.testing.assert_array_equal(
+        transform._undelta_frames(torch.from_numpy(delta), cfg).numpy(), frames)
+    jcfg = j_config.CodecConfig(transport_delta=True)
+    pixels = np.random.default_rng(6).uniform(-40.0, 300.0, (6 * 4, 512)).astype(np.float32)
+    got = transform._finish_frames(torch.from_numpy(pixels), cfg, 48, 32)
+    want = j_transform._finish_frames(jnp.asarray(pixels), jcfg, 48, 32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(decoder._undelta(got.numpy(), cfg),
+                                  j_decoder._undelta(np.asarray(want), jcfg))
 
 
 def test_context_needs_device():
