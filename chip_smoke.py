@@ -83,11 +83,29 @@ and decode of the bench clip (1920x1080, 64 frames) at 8x8x8 cubes, and the
               content, phase 12's pixels); --checkpoint-every 2 run twice,
               then decoded from the .meta sidecar; encode and decode fps,
               file to file.
+ 15. mesh     the sharded paths (dct3d_tpu_torch.parallel) on meshes that
+              repeat cuda:0 (the shards take turns on the one card): 8x8x8
+              ShardedEncoder on (2, 3) and (4, 1) with the serial sink equal
+              to phase 4's serial stream and bit ends, with the parallel
+              sink its payload; ShardedDecoder on (2, 3) with and without
+              the index equal to phase 5's pixels; TurboShardedEncoder and
+              TurboShardedDecoder on (2, 3) equal to phase 6's container and
+              pixels; 4x4x4 on (2, 3), the bench clip (K2) and the padded
+              portrait (K5, the phase pseudo-codeword), equal to their
+              single-device streams and pixels; the CLI's --mesh 1x1
+              --parity (phase 4's serial stream) and decode --mesh 1x1, the
+              exit 2 of --mesh 2x1 on one card (its file with more) and of a
+              turbo-container decode on a mesh that cannot be built; the
+              two-process gloo simulation at 1920x1080x40 on cuda:0
+              (python -m dct3d_tpu_torch.parallel.multihost_sim); the
+              6-shard dry run (dct3d_tpu_torch.parallel.dryrun); sharded
+              fps beside the single-device fps of the same phase (not a
+              scaling figure: one card runs every shard).
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after; every kernel of the path must have launched, and on the 4x4x4
-paths K1 and K4 (8x8x8 cubes only) must not have.  Phases 9-13 and the
-CLI paths of phase 14 each do the same.
+paths K1 and K4 (8x8x8 cubes only) must not have.  Phases 9-13, the CLI
+paths of phase 14 and the mesh paths of phase 15 each do the same.
 
 Each phase prints one JSON line.  Any failed check raises, and the script
 exits non-zero without printing a result; with no card it fails in phase 1.
@@ -120,7 +138,9 @@ from dct3d_tpu_torch.codec import decoder, encoder, entropy, framing, transform,
 from dct3d_tpu_torch.ops import (
     bitpack, dct, exc_pack, exceptions, expgolomb, group_pack, relayout, splice,
 )
-from dct3d_tpu_torch.parallel import multihost
+from dct3d_tpu_torch.parallel import dryrun, multihost
+from dct3d_tpu_torch.parallel.mesh import make_mesh
+from dct3d_tpu_torch.parallel.sharding import ShardedDecoder, ShardedEncoder
 
 W, H, T = 1920, 1080, 64
 # Content figures of the bench clip in BENCH_r05.json (bytes-only: any
@@ -1371,6 +1391,169 @@ def phase_cli(clip: np.ndarray, lib: dict, portrait_cropped: np.ndarray, rgb_lib
          cli_encode_fps=T / enc_s, cli_decode_fps=T / dec_s)
 
 
+def cuda_mesh(gop: int, tile: int):
+    """A (gop, tile) mesh whose every shard is cuda:0."""
+    return make_mesh(gop=gop, tile=tile, devices=[torch.device("cuda", 0)] * (gop * tile))
+
+
+def sharded(frames: np.ndarray, mesh, cfg):
+    """ShardedEncoder's stream of frames, and the encoder."""
+    enc = ShardedEncoder(frames.shape[2], frames.shape[1], mesh, cfg)
+    return enc.push(frames) + enc.finish(), enc
+
+
+def sharded_turbo(frames: np.ndarray, mesh, cfg) -> bytes:
+    """TurboShardedEncoder's container of frames."""
+    enc = turbo.TurboShardedEncoder(frames.shape[2], frames.shape[1], mesh, cfg)
+    return enc.push(frames) + enc.finish()
+
+
+def phase_mesh(clip: np.ndarray, lib: dict, smi: str) -> None:
+    """The sharded paths on meshes of cuda:0 repeated, each with launch
+    counts of its own (module docstring, phase 15)."""
+    report, launches = {}, {}
+    ref_path = ("frames_to_cubes", "group_bits", "group_pack_values", "splice")
+    cfg_ser, cfg_par = port.CodecConfig(), port.CodecConfig(deflate_workers=-1)
+    m23 = cuda_mesh(2, 3)
+    positions = [0] + lib["ends"][:-1]
+
+    # 8x8x8, reference profile: encode on (2, 3) and (4, 1), decode on (2, 3).
+    for name, mesh in (("2x3", m23), ("4x1", cuda_mesh(4, 1))):
+        kernels.LAUNCHES.clear()
+        data, enc = sharded(clip, mesh, cfg_ser)
+        launches[f"encode_{name}"] = path_launches(f"mesh {name} encode", ref_path,
+                                                   ("group_pack_codes",))
+        check(data == lib["ser"], f"the {name} sharded stream differs from the serial stream")
+        check(enc.gop_bit_ends == lib["ends"], f"the {name} bit ends differ from the index")
+    kernels.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    pdata, enc = sharded(clip, m23, cfg_par)
+    mesh_enc_s = time.perf_counter() - t0
+    launches["encode_2x3_parallel_sink"] = path_launches("mesh parallel-sink encode", ref_path)
+    check(zlib.decompress(pdata) == zlib.decompress(lib["par"]) and enc.gop_bit_ends == lib["ends"],
+          "the parallel-sink sharded payload or bit ends differ from the single-device ones")
+    check(enc.gop_sync_offsets is not None and len(enc.gop_sync_offsets) == T // 8,
+          "the parallel-sink sharded encoder gave no sync offset a GOP")
+    dec = ShardedDecoder(W, H, m23, cfg_ser)
+    kernels.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = dec.decode(lib["ser"], T, positions=positions, index_end=lib["ends"][-1])
+    mesh_dec_s = time.perf_counter() - t0
+    scanned = dec.decode(lib["ser"], T)
+    launches["decode_2x3"] = path_launches("mesh decode", ("cubes_to_frames",))
+    check(np.array_equal(out, lib["out_ser"]) and np.array_equal(scanned, lib["out_ser"]),
+          "the sharded decode differs from decode_video")
+
+    # 8x8x8 turbo on (2, 3).
+    cfg_t = port.CodecConfig(**TURBO_CFG)
+    kernels.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    tdata = sharded_turbo(clip, m23, cfg_t)
+    mesh_tenc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tout = turbo.TurboShardedDecoder(W, H, m23, cfg_t).decode(tdata)
+    mesh_tdec_s = time.perf_counter() - t0
+    launches["turbo_2x3"] = path_launches("mesh turbo", TURBO8, ("group_pack_values", "splice"))
+    check(container_digest(tdata) == JAX_TURBO_DIGEST and tdata == lib["tdata"],
+          "the sharded turbo container differs from encode_turbo_video's")
+    check(np.array_equal(tout, lib["out_par"]), "the sharded turbo decode differs")
+
+    # 4x4x4 on (2, 3): whole groups (K2) and the padded portrait (K5).
+    for run, frames in (("bench", clip), ("portrait", portrait_clip())):
+        cfg4 = port.CodecConfig(**BLOCK4, zlib_level=1)
+        ctx4 = port.TransformContext(cfg4, "cuda")
+        t, h, w = frames.shape
+        want = port.encode_video(frames, cfg4, ctx4)
+        want_px = port.decode_video(want, w, h, t, cfg4, ctx4)
+        kernels.LAUNCHES.clear()
+        got, _ = sharded(frames, m23, cfg4)
+        got_px = ShardedDecoder(w, h, m23, cfg4).decode(got, t)
+        path = (("group_bits", "group_pack_values"), ("group_pack_codes",))
+        if run == "portrait":
+            path = path[::-1]
+        launches[f"block4_{run}_2x3"] = path_launches(
+            f"mesh 4x4x4 {run}", path[0] + ("splice",),
+            path[1] + ("frames_to_cubes", "cubes_to_frames"))
+        check(got == want, f"the 4x4x4 {run} sharded stream differs from one device's "
+              "(a cuBLAS tie rounded by row count?)")
+        check(np.array_equal(got_px, want_px), f"the 4x4x4 {run} sharded pixels differ")
+
+    # The command line.
+    count = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as d:
+        src, box = os.path.join(d, "src.raw"), os.path.join(d, "m.bin")
+        clip.tofile(src)
+        dec_out = os.path.join(d, "dec.raw")
+        launches["cli_1x1"] = cli_path("mesh 1x1", REF8, [
+            ("encode", src, box, str(W), str(H), "--parity", "--mesh", "1x1"),
+            ("decode", box, dec_out, str(W), str(H), str(T), "--mesh", "1x1")])
+        with open(box, "rb") as f:
+            check(f.read() == lib["ser"], "--mesh 1x1 --parity differs from --parity")
+        check(np.array_equal(np.fromfile(dec_out, np.uint8).reshape(T, H, W), lib["out_ser"]),
+              "decode --mesh 1x1 differs from decode_video")
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["encode", src, box, str(W), str(H), "--parity", "--mesh", "2x1"])
+        if count == 1:
+            check(rc == 2 and "needs 2 devices, found 1" in err.getvalue(),
+                  f"--mesh 2x1 on one card: rc {rc}, {err.getvalue()!r}")
+        else:
+            with open(box, "rb") as f:
+                check(rc == 0 and f.read() == lib["ser"], "--mesh 2x1 --parity differs")
+        tbox = os.path.join(d, "t.d3t")
+        with open(tbox, "wb") as f:
+            f.write(tdata)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["decode", tbox, dec_out, str(W), str(H), "--mesh", f"{count + 1}x1"])
+        check(rc == 2 and f"found {count}" in err.getvalue(),
+              f"a turbo decode on an unbuildable mesh: rc {rc}, {err.getvalue()!r}")
+
+    # Two processes, one card, gloo: the gathered container.
+    t0 = time.perf_counter()
+    sim = subprocess.run(
+        [sys.executable, "-m", "dct3d_tpu_torch.parallel.multihost_sim", "--device", "cuda",
+         "--width", str(W), "--height", str(H), "--frames", "40"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    sim_s = time.perf_counter() - t0
+    check(sim.returncode == 0 and "MULTIHOST SIM PASSED" in sim.stdout,
+          f"multihost sim: rc {sim.returncode}\n{sim.stdout[-3000:]}\n{sim.stderr[-3000:]}")
+    kernels.LAUNCHES.clear()
+    dry = dryrun.dryrun_multichip(6, "cuda")
+    launches["dryrun_6"] = path_launches("dry run", REF8 + TURBO8)
+
+    # Sharded fps beside one device's, alternated: best of 2 each.
+    ctx_par = port.TransformContext(cfg_par, "cuda")
+    ctx_ser = port.TransformContext(cfg_ser, "cuda")
+    ctx_t = port.TransformContext(cfg_t, "cuda")
+    times = {k: [] for k in ("enc", "mesh_enc", "dec", "mesh_dec", "tenc", "mesh_tenc",
+                             "tdec", "mesh_tdec")}
+    for _ in range(2):
+        times["enc"].append(_timed(lambda: encode_clip(clip, cfg_par, ctx_par)))
+        times["mesh_enc"].append(_timed(lambda: sharded(clip, m23, cfg_par)))
+        times["dec"].append(_timed(lambda: port.decode_video(
+            lib["ser"], W, H, T, cfg_ser, ctx_ser, positions=positions)))
+        times["mesh_dec"].append(_timed(lambda: dec.decode(lib["ser"], T, positions=positions)))
+        times["tenc"].append(_timed(lambda: port.encode_turbo_video(clip, cfg_t, ctx_t)))
+        times["mesh_tenc"].append(_timed(lambda: sharded_turbo(clip, m23, cfg_t)))
+        times["tdec"].append(_timed(lambda: port.decode_turbo_container(tdata, W, H, cfg_t, ctx_t)))
+        times["mesh_tdec"].append(_timed(
+            lambda: turbo.TurboShardedDecoder(W, H, m23, cfg_t).decode(tdata)))
+    for k, first in (("mesh_enc", mesh_enc_s), ("mesh_dec", mesh_dec_s),
+                     ("mesh_tenc", mesh_tenc_s), ("mesh_tdec", mesh_tdec_s)):
+        times[k].append(first)
+    fps = {f"{k}_fps": T / min(v) for k, v in times.items()}
+    report.update(fps)
+    emit(phase="mesh", card=smi, launches=launches, cards=count,
+         streams_equal_single_device=True, pixels_equal_single_device=True,
+         turbo_container_equal=True, block4_streams_equal=True, cli_exits=True,
+         multihost_sim_s=sim_s, multihost_sim=sim.stdout.strip().splitlines(),
+         dryrun_shards=6, dryrun_mesh=list(dry["mesh"]),
+         note="one card runs every shard in turn: sharded fps are no scaling figure",
+         **report)
+
+
 def main() -> None:
     card, smi = phase_device()
     phase_build()
@@ -1510,6 +1693,7 @@ def main() -> None:
     rgb_lib = phase_rgb(smi)
     phase_checkpoint(clip, lib, smi)
     phase_cli(clip, lib, portrait_cropped, rgb_lib, smi)
+    phase_mesh(clip, {**lib, "tdata": tdata}, smi)
 
     print(json.dumps({"kernels": rows + brows + trows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,11 +16,13 @@ sync offsets, so decode needs no frame count.  ``--rgb`` carries a colour
 clip as three channel members, ``--checkpoint-every N`` writes a resumable
 container (a rerun resumes; decode then reads the geometry from its
 ``.meta`` sidecar), and ``--transport-delta`` ships temporal deltas to the
-device without changing a byte.  ``--mesh`` and ``--dtype bfloat16`` exit
-2 and name their ROADMAP item (``_UNPORTED``); ``--pack-bits`` and
-``--gops-per-batch`` size the TPU's buffers and batches, never the bytes,
-and are accepted and ignored.  Without a card, encode, decode and sweep
-exit 2 unless ``--device cpu`` is given.
+device without changing a byte.  ``--mesh GxT`` runs encode and decode on
+a (gop, tile) mesh of G*T CUDA devices (with ``--device cpu``, of G*T
+CPU shards) and writes the single-device bytes (parallel/sharding.py).
+``--dtype bfloat16`` exits 2 and names its ROADMAP item (``_UNPORTED``);
+``--pack-bits`` and ``--gops-per-batch`` size the TPU's buffers and
+batches, never the bytes, and are accepted and ignored.  Without a card,
+encode, decode and sweep exit 2 unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -45,7 +47,6 @@ _BATCH_GOPS = 4
 #: flags of items not ported yet: (attribute, is it set?, flag, ROADMAP
 #: Queue 1 item)
 _UNPORTED = (
-    ("mesh", bool, "--mesh", 12),
     ("dtype", lambda d: _norm_dtype(d) != "float32", "--dtype bfloat16", 8),
 )
 
@@ -215,8 +216,12 @@ def _add_codec_args(p: argparse.ArgumentParser) -> None:
         "--profile-dir", default=None,
         help="write a torch.profiler trace of the run to DIR/trace.json",
     )
-    p.add_argument("--mesh", default=None, metavar="GxT",
-                   help="not ported yet (exits 2)")
+    p.add_argument(
+        "--mesh", default=None, metavar="GxT",
+        help="run on a (gop, tile) device mesh, e.g. 4x1 or 2x2: G*T CUDA "
+        "devices (with --device cpu, G*T CPU shards); the bitstream stays "
+        "byte-identical to single-device",
+    )
     p.add_argument(
         "--pad", action="store_true",
         help="encode: edge-replicate frames up to block multiples; decode "
@@ -231,6 +236,56 @@ def _add_codec_args(p: argparse.ArgumentParser) -> None:
         "--range", default=None, metavar="A:B", dest="frame_range",
         help="decode: random-access decode of frames [A, B) only",
     )
+
+
+def _make_cli_mesh(spec: str, device):
+    """The (gop, tile) mesh of --mesh, or None after printing why (the
+    caller returns 2).  On CUDA it takes the first G*T cards and needs that
+    many; with --device cpu every shard runs on the CPU."""
+    import torch
+
+    from .parallel.mesh import make_mesh
+
+    g, _, t = spec.lower().partition("x")
+    try:
+        gop, tile = int(g), int(t or 1)
+        if gop < 1 or tile < 1:
+            raise ValueError
+    except ValueError:
+        print(f"--mesh expects GxT (e.g. 4x1, 2x2), got {spec!r}", file=sys.stderr)
+        return None
+    if device.type != "cuda":
+        return make_mesh(gop=gop, tile=tile, devices=[device] * (gop * tile))
+    found = torch.cuda.device_count()
+    if gop * tile > found:
+        print(f"--mesh {spec} needs {gop * tile} devices, found {found} "
+              "(see `devices`)", file=sys.stderr)
+        return None
+    return make_mesh(gop=gop, tile=tile,
+                     devices=[torch.device("cuda", i) for i in range(gop * tile)])
+
+
+def _setup_mesh(args, cfg, frames, device):
+    """One scaffold for the encode paths: (mesh, align, frames), or None
+    after printing the error (the caller returns 2).  Without --mesh, mesh
+    is None and align the GOP size; with it, align is gop_size * mesh gop
+    and frames (None = until EOF: the batches align downstream) truncate to
+    whole mesh steps."""
+    if not args.mesh:
+        return None, cfg.gop_size, frames
+    mesh = _make_cli_mesh(args.mesh, device)
+    if mesh is None:
+        return None
+    align = cfg.gop_size * mesh.shape["gop"]
+    if frames is not None:
+        old, frames = frames, frames - frames % align
+        if frames == 0:
+            print(f"input shorter than one {align}-frame mesh step", file=sys.stderr)
+            return None
+        if frames != old:
+            print(f"note: truncating to {frames} frames (mesh step {align})",
+                  file=sys.stderr)
+    return mesh, align, frames
 
 
 def _load_footage(args):
@@ -312,6 +367,10 @@ def cmd_encode(args) -> int:
     dev = _device(args)
     if dev is None:
         return 2
+    if args.mesh and args.transport_delta:
+        print("warning: --transport-delta is a single-device upload "
+              "optimization; the sharded path ships raw frames (output "
+              "is identical)", file=sys.stderr)
     video, width, height = _load_footage(args)
     if width is None or height is None:
         print("raw input needs explicit width and height", file=sys.stderr)
@@ -364,15 +423,19 @@ def cmd_encode(args) -> int:
                 "Encoder.java:39-40)", file=sys.stderr,
             )
             return 2
-    align = cfg.gop_size
-    ctx = TransformContext(cfg, dev)
     if args.checkpoint_every:
-        return _encode_checkpointed(args, cfg, ctx, video, width, height,
-                                    frames)
+        return _encode_checkpointed(args, cfg, dev, video, width, height, frames)
+    ms = _setup_mesh(args, cfg, frames, dev)
+    if ms is None:
+        return 2
+    mesh, align, frames = ms
     if args.turbo:
-        from .codec.turbo import TurboEncoder
+        from .codec.turbo import TurboEncoder, TurboShardedEncoder
 
-        enc = TurboEncoder(width, height, cfg, ctx)
+        if mesh is not None:
+            enc = TurboShardedEncoder(width, height, mesh, cfg)
+        else:
+            enc = TurboEncoder(width, height, cfg, TransformContext(cfg, dev))
         t0 = time.perf_counter()
         written = 0
         with profile_to(args.profile_dir), _open_out(args.output) as out:
@@ -393,7 +456,12 @@ def cmd_encode(args) -> int:
             f"bpp) in {dt:.2f}s ({frames / dt:.1f} fps)"
         )
         return 0
-    enc = StreamingEncoder(width, height, cfg, ctx)
+    if mesh is not None:
+        from .parallel.sharding import ShardedEncoder
+
+        enc = ShardedEncoder(width, height, mesh, cfg)
+    else:
+        enc = StreamingEncoder(width, height, cfg, TransformContext(cfg, dev))
     # Seekability is the default for file outputs: the stream is wrapped in
     # an indexed container, so decode needs no frame count and the host
     # entropy stage jumps straight to every GOP.  --parity keeps the raw
@@ -457,14 +525,15 @@ def cmd_encode(args) -> int:
         f"({metrics.bits_per_pixel(written, width, height, frames):.3f} bpp) "
         f"in {dt:.2f}s ({frames / dt:.1f} fps)"
     )
-    if args.stats:
+    if args.stats and hasattr(enc, "timer"):
         print(enc.timer.report(), file=sys.stderr)
     return 0
 
 
 def _encode_rgb(args, cfg, dev, video, width, height, say) -> int:
-    """encode --rgb [--turbo]: the whole clip in memory, three channel
-    members (index members too unless --no-index)."""
+    """encode --rgb [--turbo] [--mesh]: the whole clip in memory, three
+    channel members (index members too unless --no-index); on a mesh the
+    channels are sharded and the members stay the single-device ones."""
     from .codec.transform import TransformContext
     from .io import rawvideo
 
@@ -472,24 +541,28 @@ def _encode_rgb(args, cfg, dev, video, width, height, say) -> int:
         if getattr(args, flag, None):
             print(f"warning: --{flag.replace('_', '-')} is not yet "
                   "supported with --rgb and is ignored", file=sys.stderr)
+    ms = _setup_mesh(args, cfg, None, dev)
+    if ms is None:
+        return 2
+    mesh, align, _ = ms
     if video is None:
         video = rawvideo.read_video(args.input, width, height, args.frames,
                                     channels=3)
-    t = video.shape[0] - video.shape[0] % cfg.gop_size
+    t = video.shape[0] - video.shape[0] % align
     if t == 0:
-        print(f"input shorter than one {cfg.gop_size}-frame step",
-              file=sys.stderr)
+        print(f"input shorter than one {align}-frame step", file=sys.stderr)
         return 2
-    ctx = TransformContext(cfg, dev)
+    ctx = TransformContext(cfg, dev) if mesh is None else None
     t0 = time.perf_counter()
     if args.turbo:
         from .codec.turbo import encode_turbo_rgb_video
 
-        data = encode_turbo_rgb_video(video, cfg, ctx)
+        data = encode_turbo_rgb_video(video, cfg, ctx, mesh=mesh)
     else:
         from .codec.rgb_codec import encode_rgb_video
 
-        data = encode_rgb_video(video, cfg, ctx, index=args.index is not False)
+        data = encode_rgb_video(video, cfg, ctx, index=args.index is not False,
+                                mesh=mesh)
     dt = time.perf_counter() - t0
     with _open_out(args.output) as f:
         f.write(data)
@@ -498,26 +571,41 @@ def _encode_rgb(args, cfg, dev, video, width, height, say) -> int:
     return 0
 
 
-def _encode_checkpointed(args, cfg, ctx, video, width, height, frames) -> int:
-    """encode --checkpoint-every N [--turbo] [--index]: a resumable member
-    container; a rerun of the same command resumes after the last complete
-    member."""
+def _encode_checkpointed(args, cfg, dev, video, width, height, frames) -> int:
+    """encode --checkpoint-every N [--turbo] [--index] [--mesh]: a
+    resumable member container; a rerun of the same command resumes after
+    the last complete member.  Turbo on a mesh keeps every GOP (whole mesh
+    steps go to the sharded encoder, a GOP tail to a single-device one);
+    the reference profile truncates to whole mesh steps."""
     from .codec.checkpoint import CheckpointingEncoder
+    from .codec.transform import TransformContext
     from .profiling import profile_to
 
+    if args.turbo:
+        mesh, align = None, cfg.gop_size
+        if args.mesh:
+            mesh = _make_cli_mesh(args.mesh, dev)
+            if mesh is None:
+                return 2
+    else:
+        ms = _setup_mesh(args, cfg, frames, dev)
+        if ms is None:
+            return 2
+        mesh, align, frames = ms
+    ctx = TransformContext(cfg, dev) if mesh is None else None
     t0 = time.perf_counter()
     with profile_to(args.profile_dir), CheckpointingEncoder(
         args.output, width, height, cfg, ctx,
         checkpoint_gops=args.checkpoint_every, turbo=args.turbo,
         # Explicit --index only: a resume must find the member layout of
         # the first run.
-        index=bool(args.index),
+        index=bool(args.index), mesh=mesh,
     ) as cenc:
         skip = cenc.frames_done
         if skip:
             print(f"resuming at frame {skip}")
         for batch in _frame_batches(args, video, width, height,
-                                    cfg.gop_size, frames, start=skip):
+                                    align, frames, start=skip):
             cenc.push(batch)
     dt = time.perf_counter() - t0
     written = os.path.getsize(args.output)
@@ -630,9 +718,6 @@ def _read_meta(args, cfg, width, height):
 
 
 def cmd_decode(args) -> int:
-    from .codec.auto import decode_auto_range
-    from .codec.decoder import decode_video
-    from .codec.transform import TransformContext
     from .profiling import profile_to
 
     if _unported(args):
@@ -674,6 +759,10 @@ def cmd_decode(args) -> int:
             print("--range and an explicit frame count are mutually "
                   "exclusive", file=sys.stderr)
             return 2
+        if args.mesh:
+            print("note: --range decodes single-device; ignoring --mesh",
+                  file=sys.stderr)
+            args.mesh = None
     # Raw stream with an .idx sidecar (encode --parity --index): the
     # stream file is reference-byte-exact, the sidecar supplies the frame
     # count and the per-GOP positions for the indexed entropy path.
@@ -703,36 +792,108 @@ def cmd_decode(args) -> int:
             as_rgb = _rgb_streams(args, members)
             if as_rgb is None:
                 return 2
-    ctx = TransformContext(cfg, dev)
     t0 = time.perf_counter()
     with profile_to(args.profile_dir):
-        if frame_range is not None and as_rgb:
-            from .codec.rgb_codec import decode_rgb_range
-
-            video = decode_rgb_range(data, width, height, *frame_range, cfg, ctx)
-        elif frame_range is not None:
-            video = decode_auto_range(
-                data, width, height, *frame_range, cfg, ctx=ctx,
-                positions=side_positions, index_end=side_end)
-        elif members is not None:
-            from .codec.auto import decode_auto
-            from .codec.rgb_codec import decode_rgb_video
-
-            if as_rgb:
-                video = decode_rgb_video(data, width, height, cfg, ctx)
-            else:
-                video = decode_auto(data, width, height, cfg=cfg, ctx=ctx)
-            if args.frames is not None:
-                video = video[: args.frames]
-        else:
-            frames = args.frames if args.frames is not None else side_frames
-            positions = side_positions
-            if positions is not None and frames // cfg.gop_size > len(positions):
-                positions = None  # a short sidecar: scan instead
-            video = decode_video(data, width, height, frames, cfg, ctx,
-                                 positions=positions, sync_offsets=side_syncs,
-                                 index_end=side_end)
+        video = None
+        if args.mesh and not as_rgb:
+            video = _decode_on_mesh(args, data, members, width, height, cfg, dev,
+                                    side_frames, side_positions, side_end)
+            if isinstance(video, int):
+                return video
+        if video is None:
+            video = _decode_one_device(args, data, members, as_rgb, frame_range,
+                                       width, height, cfg, dev, side_frames,
+                                       side_positions, side_syncs, side_end)
+        elif args.frames is not None:
+            video = video[: args.frames]
     return _write_decoded(args, video, width, height, t0)
+
+
+def _decode_one_device(args, data, members, as_rgb, frame_range, width, height,
+                       cfg, dev, side_frames, side_positions, side_syncs, side_end):
+    """cmd_decode on one device: the frames of a range, a container or a
+    raw stream."""
+    from .codec.auto import decode_auto, decode_auto_range
+    from .codec.decoder import decode_video
+    from .codec.rgb_codec import decode_rgb_range, decode_rgb_video
+    from .codec.transform import TransformContext
+
+    ctx = TransformContext(cfg, dev)
+    if frame_range is not None and as_rgb:
+        return decode_rgb_range(data, width, height, *frame_range, cfg, ctx)
+    if frame_range is not None:
+        return decode_auto_range(data, width, height, *frame_range, cfg, ctx=ctx,
+                                 positions=side_positions, index_end=side_end)
+    if members is not None:
+        if as_rgb:
+            video = decode_rgb_video(data, width, height, cfg, ctx)
+        else:
+            video = decode_auto(data, width, height, cfg=cfg, ctx=ctx)
+        return video if args.frames is None else video[: args.frames]
+    frames = args.frames if args.frames is not None else side_frames
+    positions = side_positions
+    if positions is not None and frames // cfg.gop_size > len(positions):
+        positions = None  # a short sidecar: scan instead
+    return decode_video(data, width, height, frames, cfg, ctx, positions=positions,
+                        sync_offsets=side_syncs, index_end=side_end)
+
+
+def _decode_on_mesh(args, data, members, width, height, cfg, dev,
+                    side_frames, side_positions, side_end):
+    """cmd_decode on --mesh: the frames, None where the container takes the
+    single-device path (a note says why), or 2 after printing why the mesh
+    cannot be built.
+
+    A turbo container decodes on TurboShardedDecoder.  A single-stream
+    temporal container feeds its member, with its index positions, to
+    ShardedDecoder, unless its frames do not fill whole mesh steps (the
+    sharded decoder would drop the tail).  Several stream members decode
+    host-parallel instead, and turbo-RGB and RGB containers ignore the
+    mesh.  A raw stream decodes on ShardedDecoder with the .idx sidecar's
+    positions.  Either index is held against the payload first (R1)."""
+    from .codec.turbo import TurboShardedDecoder, is_turbo_container
+    from .parallel.multihost import (
+        MEMBER_INDEX, MEMBER_TEMPORAL, gop_positions, parse_index,
+    )
+    from .parallel.sharding import ShardedDecoder
+
+    if members is not None:
+        if not is_turbo_container(members):
+            if any(m[2] not in (MEMBER_TEMPORAL, MEMBER_INDEX) for m in members):
+                return None  # turbo RGB: no mesh route
+            n_streams = sum(1 for m in members if m[2] == MEMBER_TEMPORAL)
+            if n_streams > 1:
+                print("note: --mesh applies only to single-stream "
+                      "containers; decoding members host-parallel instead",
+                      file=sys.stderr)
+            if n_streams != 1:
+                return None
+    mesh = _make_cli_mesh(args.mesh, dev)
+    if mesh is None:
+        return 2
+    if members is not None and is_turbo_container(members):
+        return TurboShardedDecoder(width, height, mesh, cfg).decode(data)
+    step = cfg.gop_size * mesh.shape["gop"]
+    if members is not None:
+        frames, payload, _ = next(m for m in members if m[2] == MEMBER_TEMPORAL)
+        if frames % step:
+            print(f"note: {frames} frames don't fill whole {step}-frame mesh "
+                  "steps; decoding single-device instead", file=sys.stderr)
+            return None
+        positions = index_end = None
+        for _, p, mtype in members:
+            if mtype == MEMBER_INDEX and (ends := parse_index(p)) is not None:
+                positions = gop_positions(ends, frames // cfg.gop_size,
+                                          cfg.gop_size, frames)
+                index_end = ends[-1] if ends else None
+        return ShardedDecoder(width, height, mesh, cfg).decode(
+            payload, frames, positions=positions, index_end=index_end)
+    frames = args.frames if args.frames is not None else side_frames
+    positions = side_positions
+    if positions is not None and frames // cfg.gop_size > len(positions):
+        positions = None  # a short sidecar: scan instead
+    return ShardedDecoder(width, height, mesh, cfg).decode(
+        data, frames, positions=positions, index_end=side_end)
 
 
 def _write_decoded(args, video, width, height, t0) -> int:

@@ -12,8 +12,8 @@ fsyncs; ``resume_info`` reports how many frames a (possibly torn) file holds
 safely, and the encoder truncates a torn tail member on resume.  A
 ``<path>.meta`` sidecar pins the codec parameters (the JAX package's JSON,
 byte for byte).  Members are built from the encoders' output bytes only.
-
-``mesh`` is not ported (ROADMAP Queue 1, item 12) and raises.
+On a device mesh (``mesh=``) the sharded encoders make the members, byte
+for byte the single-device ones, so a resume may change or drop the mesh.
 """
 
 from __future__ import annotations
@@ -29,7 +29,8 @@ from ..config import CodecConfig
 from ..parallel.multihost import MEMBER_MAGIC, _member, make_index_member
 from .encoder import StreamingEncoder
 from .transform import TransformContext
-from .turbo import TurboEncoder, _no_mesh
+from ..parallel.sharding import ShardedEncoder
+from .turbo import TurboEncoder, TurboShardedEncoder
 
 
 def resume_info(path: str) -> tuple[int, int]:
@@ -60,7 +61,16 @@ class CheckpointingEncoder:
 
     Reference profile: one member (and, with ``index``, its index member)
     per ``checkpoint_gops`` GOPs.  Turbo profile: the turbo encoder's one
-    member per GOP, fsynced every ``checkpoint_gops`` GOPs."""
+    member per GOP, fsynced every ``checkpoint_gops`` GOPs.
+
+    ``mesh``: an optional (gop, tile) device mesh (parallel/mesh.py).  The
+    sharded encoders then make the members, byte-identical to the
+    single-device ones, so the .meta sidecar does not pin the mesh.
+    Reference profile: ``checkpoint_gops`` must be whole mesh steps and the
+    resume point a whole number of steps (both raise ValueError otherwise).
+    Turbo profile: members are independent per GOP, so whole steps take the
+    sharded encoder and a GOP tail a single-device one, and neither rule
+    applies."""
 
     def __init__(
         self,
@@ -75,18 +85,38 @@ class CheckpointingEncoder:
         mesh=None,
         device=None,
     ) -> None:
-        _no_mesh(mesh)
+        self.mesh = mesh
         self.cfg = cfg or CodecConfig()
+        if mesh is not None and not turbo and checkpoint_gops % mesh.shape["gop"]:
+            raise ValueError(
+                f"checkpoint_gops={checkpoint_gops} is not a multiple of "
+                f"the mesh gop axis ({mesh.shape['gop']}): members would "
+                "flush at different boundaries than a single-device encode "
+                "(breaking container byte-identity); pick a multiple or a "
+                "smaller gop axis"
+            )
         self.path = path
         self.width = width
         self.height = height
-        self.ctx = ctx or TransformContext(self.cfg, device)
+        if mesh is None:
+            self.ctx = ctx or TransformContext(self.cfg, device)
+        else:  # the sharded encoders build a context a device
+            self.ctx = ctx
         self.checkpoint_gops = checkpoint_gops
         #: follow each member with its per-GOP index member; a torn index
         #: member truncates away on resume, leaving its stream member valid
         self.index = index
         self.turbo = turbo
         self.frames_done, safe_bytes = resume_info(path)
+        if mesh is not None and not turbo:
+            step = self.cfg.gop_size * mesh.shape["gop"]
+            if self.frames_done % step:
+                raise ValueError(
+                    f"cannot resume at frame {self.frames_done} on a "
+                    f"{mesh.shape['gop']}-gop mesh (not a whole "
+                    f"{step}-frame mesh step); resume without --mesh or "
+                    "with a gop axis that divides the resume point"
+                )
         # The headerless member format cannot describe its codec
         # parameters; the sidecar pins them so a resume with other flags
         # fails loudly instead of appending members that decode to garbage.
@@ -116,7 +146,8 @@ class CheckpointingEncoder:
         self._enc: StreamingEncoder | None = None
         self._member_frames = 0
         self._member_chunks: list[bytes] = []
-        self._turbo_enc: TurboEncoder | None = None
+        self._turbo_enc: TurboEncoder | TurboShardedEncoder | None = None
+        self._turbo_tail: TurboEncoder | None = None
         self._since_sync = 0
 
     @staticmethod
@@ -150,42 +181,77 @@ class CheckpointingEncoder:
         os.fsync(self._f.fileno())
         self._since_sync = 0
 
+    def _tail_ctx(self) -> TransformContext:
+        """A context for single-device work on a mesh: shard 0's device."""
+        if self.ctx is None:
+            self.ctx = TransformContext(self.cfg, self.mesh.devices[0])
+        return self.ctx
+
     def _push_turbo(self, frames: np.ndarray) -> None:
-        if self._turbo_enc is None:
-            self._turbo_enc = TurboEncoder(self.width, self.height, self.cfg,
-                                           self.ctx)
-        self._f.write(self._turbo_enc.push(frames))
+        if self.mesh is None:
+            if self._turbo_enc is None:
+                self._turbo_enc = TurboEncoder(self.width, self.height, self.cfg,
+                                               self.ctx)
+            self._f.write(self._turbo_enc.push(frames))
+        else:
+            # Turbo members are one independent stream a GOP, so a batch
+            # that does not fill whole mesh steps (a resume point from a
+            # single-device run, or the stream's tail) splits: whole steps
+            # take the sharded encoder, the GOP tail a single-device one;
+            # members land in frame order and the file stays byte-identical.
+            step = self.cfg.gop_size * self.mesh.shape["gop"]
+            whole = frames.shape[0] - frames.shape[0] % step
+            if whole:
+                if self._turbo_enc is None:  # lazy: tail-only pushes
+                    self._turbo_enc = TurboShardedEncoder(
+                        self.width, self.height, self.mesh, self.cfg, self.ctx)
+                self._f.write(self._turbo_enc.push(frames[:whole]))
+            if whole < frames.shape[0]:
+                if self._turbo_tail is None:
+                    self._turbo_tail = TurboEncoder(
+                        self.width, self.height, self.cfg, self._tail_ctx())
+                self._f.write(self._turbo_tail.push(frames[whole:])
+                              + self._turbo_tail.drain())
         self.frames_done += frames.shape[0]
         self._since_sync += frames.shape[0] // self.cfg.gop_size
         if self._since_sync >= self.checkpoint_gops:
             # Force in-flight members out before the fsync, else the
             # durability bound grows by the encoder's pipeline depth.
-            self._f.write(self._turbo_enc.drain())
+            if self._turbo_enc is not None:
+                self._f.write(self._turbo_enc.drain())
             self._sync()
 
     def push(self, frames: np.ndarray) -> None:
-        """Encode a (T, H, W) uint8 batch, T a multiple of the GOP.  After a
-        resume the caller feeds frames from ``frames_done`` on."""
+        """Encode a (T, H, W) uint8 batch, T a multiple of the GOP (on a
+        mesh, of gop_size * mesh gop).  After a resume the caller feeds
+        frames from ``frames_done`` on."""
         if self.turbo:
             return self._push_turbo(frames)
         gop = self.cfg.gop_size
-        if frames.shape[0] % gop:
+        step = gop if self.mesh is None else gop * self.mesh.shape["gop"]
+        if frames.shape[0] % step:
             raise ValueError(
-                f"push expects a multiple of {gop} frames, got {frames.shape[0]}"
+                f"push expects a multiple of {step} frames "
+                f"(gop_size x mesh gop axis), got {frames.shape[0]}"
             )
-        for i in range(0, frames.shape[0], gop):
+        for i in range(0, frames.shape[0], step):
             if self._enc is None:
-                self._enc = StreamingEncoder(self.width, self.height, self.cfg,
-                                             self.ctx)
-            self._member_chunks.append(self._enc.push(frames[i : i + gop]))
-            self._member_frames += gop
+                if self.mesh is not None:
+                    self._enc = ShardedEncoder(self.width, self.height,
+                                               self.mesh, self.cfg, self.ctx)
+                else:
+                    self._enc = StreamingEncoder(self.width, self.height,
+                                                 self.cfg, self.ctx)
+            self._member_chunks.append(self._enc.push(frames[i : i + step]))
+            self._member_frames += step
             if self._member_frames >= self.checkpoint_gops * gop:
                 self._flush_member()
 
     def close(self) -> None:
         if self.turbo:
-            if self._turbo_enc is not None:
-                self._f.write(self._turbo_enc.finish())
+            for enc in (self._turbo_enc, self._turbo_tail):
+                if enc is not None:
+                    self._f.write(enc.finish())
             self._sync()
         else:
             self._flush_member()

@@ -19,7 +19,10 @@ loads jax.
     with the serial boundary scan as the last resort;
   * ``InflateSource``, the streaming inflate with a bit cursor behind
     ``StreamingDecoder`` (its planar4 reader only: the port decodes
-    through the nibble plane).
+    through the nibble plane);
+  * the sharded decoder's stream (parallel/sharding.py): ``decode_values``
+    (to int32 values), the bounded ``InflateWindow`` and
+    ``parallel_chunks_bounded`` over it.
 
 The C library is required (there is no NumPy fallback), so the JAX code's
 ``native.load() is None`` branches are not copied.
@@ -77,6 +80,25 @@ def scan_values(data: bytes | np.ndarray, n: int, bitpos: int = 0) -> int:
     if pos == (1 << 64) - 1:
         raise EOFError("exp-golomb stream exhausted")
     return int(pos)
+
+
+def decode_values(
+    data: bytes | np.ndarray, n: int, bitpos: int = 0
+) -> tuple[np.ndarray, int]:
+    """Decode n values starting at bit `bitpos` (native/expgolomb.c
+    eg_decode); returns (int32 values, new bitpos).
+
+    Raises EOFError if the buffer ends mid-stream.
+    """
+    buf = _as_u8(data)
+    out = np.empty(n, dtype=np.int32)
+    pos = ctypes.c_uint64(bitpos)
+    rc = native.load().eg_decode(
+        buf.ctypes.data, buf.size * 8, ctypes.byref(pos), out.ctypes.data, n,
+    )
+    if rc != 0:
+        raise EOFError("exp-golomb stream exhausted")
+    return out, int(pos.value)
 
 
 def decode_values_planar4(
@@ -642,6 +664,166 @@ def parallel_chunks(payload, values_per_chunk: int, n_chunks: int,
             f, part = futs.pop(c)
             r = f.result()
             yield r if part is None else r[part]
+
+
+class InflateWindow:
+    """Bounded sliding window over an inflating zlib stream, addressed in
+    ABSOLUTE payload bits.
+
+    parallel_chunks needs random access to the inflated payload, so its
+    callers inflate the whole stream up front — an hour of 1080p holds GBs
+    of entropy payload.  This window pumps the inflater on demand
+    (`ensure_bit`), hands workers bounded COPIES of their chunk's byte span
+    (`array`), and drops consumed bytes (`drop_before`), so the resident
+    payload is O(in-flight chunks), not O(stream).
+
+    `max_held` records the high-water window size (tests pin the bound).
+    """
+
+    def __init__(self, data: bytes, chunk_bytes: int = 1 << 20) -> None:
+        self._z = zlib.decompressobj()
+        self._src = memoryview(data)
+        self._off = 0
+        self._chunk = chunk_bytes
+        self._buf = bytearray()
+        self._base = 0  # absolute byte offset of _buf[0]
+        self._eof = False
+        self.max_held = 0
+
+    @property
+    def end_bit(self) -> int:
+        return (self._base + len(self._buf)) * 8
+
+    def pump(self) -> bool:
+        """Inflate more source; False once the stream is exhausted."""
+        try:
+            while not self._eof:
+                piece = self._src[self._off : self._off + self._chunk]
+                self._off += len(piece)
+                out = self._z.decompress(bytes(piece)) if piece else b""
+                if self._off >= len(self._src):
+                    out += self._z.flush()
+                    self._eof = True
+                if out:
+                    self._buf += out
+                    self.max_held = max(self.max_held, len(self._buf))
+                    return True
+            return False
+        except zlib.error as e:
+            raise ValueError(f"corrupt bitstream: {e}") from e
+
+    def ensure_bit(self, bit: int) -> bool:
+        """Grow the window to cover absolute `bit`; False at stream end."""
+        while self.end_bit < bit:
+            if not self.pump():
+                return False
+        return True
+
+    def drop_before(self, bit: int) -> None:
+        n = bit // 8 - self._base
+        if n > 0:
+            del self._buf[:n]
+            self._base += n
+
+    def array(self, from_bit: int, to_bit: int | None = None):
+        """Contiguous uint8 COPY of [from_bit's byte, to_bit's byte] (or the
+        window end) -> (arr, base_bit).  A copy, so the window can keep
+        growing and dropping while workers read their snapshots."""
+        a = max(0, from_bit // 8 - self._base)
+        if to_bit is None:
+            b = len(self._buf)
+        else:
+            b = min(len(self._buf), -(-to_bit // 8) - self._base)
+        arr = np.frombuffer(self._buf, np.uint8, len(self._buf))[a:b].copy()
+        return arr, (self._base + a) * 8
+
+    def scan(self, n: int, bitpos: int, hint_bits: int) -> int:
+        """scan_values over the window, pumping on shortfall.
+
+        `hint_bits` pre-grows the window to the chunk's expected span so
+        the scan rarely restarts.  Raises EOFError only at true stream
+        end."""
+        self.ensure_bit(bitpos + hint_bits)
+        while True:
+            arr, base = self.array(bitpos)
+            try:
+                return scan_values(arr, n, bitpos - base) + base
+            except EOFError:
+                if not self.pump():
+                    raise
+
+
+def parallel_chunks_bounded(win: InflateWindow, values_per_chunk: int,
+                            n_chunks: int, decode_fn,
+                            workers: int | None = None,
+                            positions: list[int] | None = None,
+                            hint_bits_per_value: int = 3):
+    """parallel_chunks over an InflateWindow: the same ordered results, the
+    same scan-ahead and worker-pool overlap, but O(in-flight) payload
+    residency.
+
+    Chunk k is submitted once its end boundary is known (scan, or the
+    index's positions[k+1]); each worker decodes a bounded snapshot of its
+    own byte span.  The final chunk's end is unknown without a scan, so it
+    decodes with a pump-and-retry loop (main thread only — the window is
+    not thread-safe).
+    """
+    workers = workers or max(1, min(n_chunks, (os.cpu_count() or 2) - 1))
+    hint = values_per_chunk * hint_bits_per_value
+    have_index = positions is not None
+    if have_index:
+        if len(positions) < n_chunks:
+            raise ValueError(
+                f"index has {len(positions)} positions, need {n_chunks}"
+            )
+        pos = list(positions[:n_chunks])
+    else:
+        pos = [0]
+    slack = 64  # native decoders may peek a word past the last codeword
+
+    futs: dict = {}
+    with ThreadPoolExecutor(workers) as pool:
+        def submit(k: int) -> None:
+            if k in futs:
+                return
+            if not have_index:
+                while len(pos) <= k + 1:
+                    # Walking the scan also grows the window to the span
+                    # (and scanning the last chunk pins its exact end, so
+                    # the EOF-retry path below only fires on truncation).
+                    pos.append(win.scan(values_per_chunk, pos[-1], hint))
+            end = pos[k + 1] + slack if k + 1 < len(pos) else None
+            if end is not None:
+                win.ensure_bit(end)
+            else:  # indexed last chunk, end unknown: take the hint span
+                win.ensure_bit(pos[k] + hint + slack)
+            arr, base = win.array(pos[k], end)
+            futs[k] = (pool.submit(decode_fn, arr, values_per_chunk,
+                                   pos[k] - base), base)
+
+        for c in range(n_chunks):
+            for k in range(c, min(c + workers + 1, n_chunks)):
+                submit(k)
+            fut, base = futs.pop(c)
+            while True:
+                try:
+                    result = fut.result()
+                    break
+                except EOFError:
+                    # Snapshot too short (hint miss on the last chunk, or a
+                    # truncated stream): grow and retry in the main thread.
+                    if not win.pump():
+                        raise
+                    arr, base = win.array(pos[c])
+                    fut = pool.submit(decode_fn, arr, values_per_chunk,
+                                      pos[c] - base)
+            *vals, rel_end = result
+            end = rel_end + base
+            if not have_index:
+                while len(pos) <= c + 1:
+                    pos.append(end)
+            yield tuple(vals) + (end,)
+            win.drop_before(pos[c + 1] if c + 1 < len(pos) else end)
 
 
 class InflateSource:

@@ -6,9 +6,8 @@ files, each runs through the grayscale codec, and RGBUtils.mix joins them
 again (README.md:22-27).  Here the three channel planes are encoded as three
 members of one D3MH container (R, G, B order, tagged 1/2/3), each followed
 by its index member when asked for, so one file carries a colour clip.  The
-per-channel payload is the unmodified grayscale bitstream.
-
-``mesh`` is not ported (ROADMAP Queue 1, item 12) and raises.
+per-channel payload is the unmodified grayscale bitstream, also when a
+device mesh encodes it (``mesh=``, parallel/sharding.py).
 """
 
 from __future__ import annotations
@@ -21,10 +20,10 @@ from ..parallel.multihost import (
     _member, container_kind, make_index_member, parse_index, parse_index_syncs,
     split_members,
 )
+from ..parallel.sharding import ShardedEncoder
 from .decoder import decode_frame_range, decode_video
 from .encoder import StreamingEncoder, encode_video
 from .transform import TransformContext
-from .turbo import _no_mesh
 
 
 def encode_rgb_video(
@@ -40,27 +39,36 @@ def encode_rgb_video(
     decode routes without a flag.
 
     index=True follows each channel member with its per-GOP index member
-    (bit ends and parallel-inflate sync offsets, docs/FORMAT.md)."""
-    _no_mesh(mesh)
+    (bit ends and parallel-inflate sync offsets, docs/FORMAT.md).
+
+    mesh: an optional (gop, tile) device mesh (parallel/mesh.py); each
+    channel stream then comes from ShardedEncoder, byte-identical to the
+    single-device member, so the container needs no mesh to decode.
+    Frames truncate to whole mesh steps (gop_size * mesh gop)."""
     cfg = cfg or CodecConfig()
     if frames.ndim != 4 or frames.shape[-1] != 3:
         raise ValueError("expected (T, H, W, 3) interleaved RGB")
-    ctx = ctx or TransformContext(cfg, device)
-    align = cfg.gop_size
+    if mesh is None:
+        ctx = ctx or TransformContext(cfg, device)
+    align = cfg.gop_size if mesh is None else cfg.gop_size * mesh.shape["gop"]
     t = frames.shape[0] - frames.shape[0] % align
     if t == 0:
         raise ValueError(f"input shorter than one {align}-frame step")
     out = []
     for c, mtype in enumerate((MEMBER_RED, MEMBER_GREEN, MEMBER_BLUE)):
         plane = np.ascontiguousarray(frames[:t, :, :, c])
-        if not index:
+        if mesh is not None:
+            enc = ShardedEncoder(plane.shape[2], plane.shape[1], mesh, cfg, ctx)
+        elif index:
+            enc = StreamingEncoder(plane.shape[2], plane.shape[1], cfg, ctx)
+        else:
             out.append(_member(encode_video(plane, cfg, ctx), t, mtype))
             continue
-        enc = StreamingEncoder(plane.shape[2], plane.shape[1], cfg, ctx)
         data = enc.push(plane) + enc.finish()
         out.append(_member(data, t, mtype))
-        out.append(make_index_member(enc.gop_bit_ends,
-                                     sync_offsets=enc.gop_sync_offsets))
+        if index:
+            out.append(make_index_member(enc.gop_bit_ends,
+                                         sync_offsets=enc.gop_sync_offsets))
     return b"".join(out)
 
 

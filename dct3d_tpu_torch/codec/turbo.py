@@ -29,9 +29,9 @@ at cfg.zlib_level; decode sniffs each stream's magic.
 Turbo RGB (``encode_turbo_rgb_video`` and its decoders) carries each
 channel as its own members, types 6/7/8, channel-major.  With
 ``cfg.transport_delta`` the host sends wrapping temporal deltas and the
-decode undoes them, as in the reference profile.  Not ported yet (ROADMAP
-Queue 1, item 12): the sharded encoder and decoder; a ``mesh`` argument
-raises.
+decode undoes them, as in the reference profile.  ``TurboShardedEncoder``
+and ``TurboShardedDecoder`` run the same steps over a (gop, tile) device
+mesh (parallel/mesh.py), members and pixels identical to one device's.
 """
 
 from __future__ import annotations
@@ -55,6 +55,8 @@ from ..parallel.multihost import (
     MEMBER_BLUE, MEMBER_GREEN, MEMBER_INDEX, MEMBER_RED, MEMBER_TEMPORAL,
     _member, split_members,
 )
+from ..parallel.mesh import GOP_AXIS, TILE_AXIS
+from ..parallel.sharding import _check_tiles, fetch, mesh_contexts
 from . import entropy
 from .decoder import _dispatch_planar4, _to_host_async, _undelta, decode_video
 from .encoder import _deltas, encode_video
@@ -437,12 +439,218 @@ class TurboEncoder:
         return out
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh encodes are not ported (ROADMAP Queue 1, item 12: "
-            "multi-GPU sharding)"
-        )
+class TurboShardedEncoder:
+    """Turbo encode over a (gop, tile) device mesh (parallel/mesh.py);
+    members byte-identical to TurboEncoder's.
+
+    Turbo has no bit phases, so shard rank order is global value order
+    (GOP-major, then block-row tiles): each shard runs the single-device
+    step (K1, K7 to its (cube/2, local cubes) wire slab, K6) on its device,
+    and a GOP's wire plane is its tiles' slabs side by side.  The shards'
+    exception tables are expanded one shard at a time and offset by the
+    tile's first value, so a shard whose values end in a partial 256-value
+    group (4x4x4 cubes) cannot shift the next one's indices.  If any shard
+    overflows its slots, the whole step reruns at 256 slots.  The shards get
+    raw frames whatever cfg.transport_delta says.  The host builds the
+    members on a pool of deflate workers (cfg.deflate_workers), up to
+    ``max_inflight`` GOPs at a time across the steps of a push, as
+    TurboEncoder does; push() returns every member of its frames.
+    """
+
+    max_inflight = 6  # TurboEncoder's default
+
+    def __init__(self, width, height, mesh, cfg: CodecConfig | None = None,
+                 ctx: TransformContext | None = None,
+                 slots: int = exceptions.DEFAULT_SLOTS,
+                 member_type: int = MEMBER_TURBO) -> None:
+        self.member_type = member_type
+        self.cfg = cfg or CodecConfig()
+        self.width = width
+        self.height = height
+        self.mesh = mesh
+        n_gop, n_tile = mesh.shape[GOP_AXIS], mesh.shape[TILE_AXIS]
+        _check_tiles(self.cfg, height, n_tile)
+        self.cfg.validate_geometry(width, height)
+        self._mesh_shape = (n_gop, n_tile)
+        self._shard_cfg = dataclasses.replace(self.cfg, transport_delta=False)
+        self._ctx = mesh_contexts(mesh, self._shard_cfg, ctx)
+        self.slots = slots
+        self._pool = ThreadPoolExecutor(
+            max_workers=entropy.resolve_workers(self.cfg.deflate_workers))
+        self._warned_fallback = False
+        self.frames_encoded = 0
+
+    def _warn_fallback(self) -> None:
+        self._warned_fallback = _warn_fallback_once(self._warned_fallback)
+
+    def _step(self, frames: np.ndarray, slots: int) -> list[TurboGOP]:
+        n_tile = self._mesh_shape[1]
+        gop, lh = self.cfg.gop_size, self.height // n_tile
+        out = []
+        for k, dev in enumerate(self.mesh.devices):
+            g, t = divmod(k, n_tile)
+            fd = to_device(frames[g * gop : (g + 1) * gop, t * lh : (t + 1) * lh], dev)
+            out.append(_plane_and_tables(
+                _frames_to_q(fd, self._ctx[dev].enc_t_pair, self._shard_cfg), slots,
+                wire=True))
+        return out
+
+    def push(self, frames: np.ndarray) -> bytes:
+        """Encode a (T, H, W) uint8 batch, T a multiple of gop_size * mesh
+        gop; returns its members."""
+        n_gop, n_tile = self._mesh_shape
+        gop = self.cfg.gop_size
+        step_t = gop * n_gop
+        t, h, w = frames.shape
+        if t % step_t or (h, w) != (self.height, self.width):
+            raise ValueError(
+                f"push expects T % {step_t} == 0 and geometry "
+                f"{self.height}x{self.width}"
+            )
+        out: list[bytes] = []
+        futs: collections.deque = collections.deque()
+        dev0 = self.mesh.devices[0]
+        for i in range(0, t, step_t):
+            step = frames[i : i + step_t]
+            shards = self._step(step, self.slots)
+            if bool(torch.stack([s.overflow.to(dev0) for s in shards]).any()):
+                shards = self._step(step, _RETRY_SLOTS)
+            host = fetch([a for s in shards for a in s[:5]])
+            for g in range(n_gop):
+                futs.append(self._pool.submit(
+                    self._member, host[5 * g * n_tile : 5 * (g + 1) * n_tile],
+                    step[g * gop : (g + 1) * gop]))
+                if len(futs) > self.max_inflight:
+                    out.append(futs.popleft().result())
+            self.frames_encoded += step_t
+        out.extend(f.result() for f in futs)
+        return b"".join(out)
+
+    def _member(self, host: list[np.ndarray], raw: np.ndarray) -> bytes:
+        """Worker: one GOP's member from its tiles' (plane, dc, lidx, vals,
+        counts), five arrays a tile in tile order."""
+        n_tile = self._mesh_shape[1]
+        local_n = self.cfg.gop_size * (self.height // n_tile) * self.width
+        tiles = [host[5 * k : 5 * k + 5] for k in range(n_tile)]
+        plane = np.concatenate([tl[0] for tl in tiles], axis=1)
+        dc = np.concatenate([tl[1] for tl in tiles])
+        exc = [_expand_pair(*tl[2:], self.cfg.cube_size) for tl in tiles]
+        idx = np.concatenate([e[0] + k * local_n for k, e in enumerate(exc)])
+        val = np.concatenate([e[1] for e in exc])
+        payload = _member_payload(plane, dc, idx, val, self.cfg, True)
+        # The same content-measured fallback as TurboEncoder: the exception
+        # lists and payloads equal the single-device ones, so the choice
+        # does too.
+        return _pick_member(raw, payload, idx.size, self.cfg.gop_size,
+                            self.member_type, self._shard_cfg,
+                            self._ctx[self.mesh.devices[0]], self._warn_fallback)
+
+    def drain(self) -> bytes:
+        """push() returns every member of its frames, so nothing is in
+        flight here (the checkpointing encoder drains before each fsync)."""
+        return b""
+
+    def finish(self) -> bytes:
+        self._pool.shutdown(wait=True)
+        return b""
+
+
+class TurboShardedDecoder:
+    """Turbo decode over a (gop, tile) device mesh; pixels identical to the
+    single-device turbo decode's, through the same composition: the
+    split-DC parse (``_parse_payload(split_dc=True)``), K8, then
+    planar4_to_frames (K4 at 8x8x8) on each shard's device.
+
+    Host work per mesh step is n_gop payload parses on a pool (pure
+    decompression) and per tile a column slice of the (cube/2, cubes) wire
+    plane, the tile's DC slice and its exact exception list.  Members that
+    do not fill a whole mesh step, and reference-profile fallback members,
+    take the single-device path."""
+
+    def __init__(self, width, height, mesh, cfg: CodecConfig | None = None,
+                 ctx: TransformContext | None = None,
+                 inflate_workers: int | None = None) -> None:
+        self.cfg = cfg or CodecConfig()
+        self.width = width
+        self.height = height
+        self.mesh = mesh
+        n_gop, n_tile = mesh.shape[GOP_AXIS], mesh.shape[TILE_AXIS]
+        _check_tiles(self.cfg, height, n_tile)
+        self.cfg.validate_geometry(width, height)
+        self._mesh_shape = (n_gop, n_tile)
+        self._ctx = mesh_contexts(
+            mesh, dataclasses.replace(self.cfg, transport_delta=False), ctx)
+        self._workers = inflate_workers or max(1, os.cpu_count() or 2)
+
+    def _dispatch(self, parsed: list) -> list:
+        """n_gop parsed split-DC wire payloads -> each shard's frames on its
+        device, started back to the host (_to_host_async), rank order."""
+        n_tile = self._mesh_shape[1]
+        local_h = self.height // n_tile
+        local_n = self.cfg.gop_size * local_h * self.width
+        lc = local_n // self.cfg.cube_size
+        out = []
+        for k, dev in enumerate(self.mesh.devices):
+            g, t = divmod(k, n_tile)
+            wire, dc, idx, val = parsed[g]
+            sel = (idx >= t * local_n) & (idx < (t + 1) * local_n)
+            planar = (wire[:, t * lc : (t + 1) * lc], dc[t * lc : (t + 1) * lc],
+                      idx[sel] - t * local_n, val[sel])
+            out.append(_to_host_async(
+                _dispatch_planar4(planar, self._ctx[dev], local_h, self.width)))
+        return out
+
+    def decode(self, data: bytes, member_type: int = MEMBER_TURBO) -> np.ndarray:
+        members = [m for m in split_members(data) if m[2] in _typed(member_type)]
+        if not members:
+            raise ValueError(f"not a turbo container (no type-{member_type} members)")
+        n_gop, n_tile = self._mesh_shape
+        gop = self.cfg.gop_size
+        lh = self.height // n_tile
+        n_steps = len(members) // n_gop
+        # Step offsets assume one GOP per turbo member (what every turbo
+        # encoder writes); fallback members or odd sizes in the steps send
+        # the whole container down the single-device path.
+        if any(m[0] != gop or m[2] != member_type for m in members[: n_steps * n_gop]):
+            n_steps = 0
+        step_t = gop * n_gop
+        out = np.empty((sum(m[0] for m in members), self.height, self.width), np.uint8)
+        pending: collections.deque = collections.deque()
+        cube = self.cfg.cube_size
+
+        def drain_one() -> None:
+            a0, parts = pending.popleft()
+            for k, (host, done) in enumerate(parts):
+                if done is not None:
+                    done.synchronize()
+                g, t = divmod(k, n_tile)
+                out[a0 + g * gop : a0 + (g + 1) * gop, t * lh : (t + 1) * lh] = host.numpy()
+
+        with ThreadPoolExecutor(self._workers) as pool:
+            n_main = n_steps * n_gop
+            lookahead = max(n_gop, 2 * self._workers)
+            inflight = collections.deque(
+                pool.submit(_parse_payload, m[1], cube, True, True)
+                for m in members[: min(n_main, lookahead)])
+            nxt = len(inflight)
+            for s in range(n_steps):
+                parsed = []
+                for _ in range(n_gop):
+                    parsed.append(inflight.popleft().result())
+                    if nxt < n_main:
+                        inflight.append(pool.submit(
+                            _parse_payload, members[nxt][1], cube, True, True))
+                        nxt += 1
+                pending.append((s * step_t, self._dispatch(parsed)))
+                if len(pending) >= _WINDOW:
+                    drain_one()
+            while pending:
+                drain_one()
+            if n_main < len(members):  # the tail: the single-device path
+                out[n_steps * step_t :] = _decode_members(
+                    members[n_main:], pool, self.width, self.height, self.cfg,
+                    self._ctx[self.mesh.devices[0]])
+        return out
 
 
 def encode_turbo_video(
@@ -470,20 +678,28 @@ def encode_turbo_rgb_video(
     """(T, H, W, 3) interleaved RGB -> turbo container on ``device`` (or
     ``ctx.device``): per channel, one type-6/7/8 member per GOP
     (channel-major member order, like the reference-profile RGB
-    container).  ``mesh`` is not ported (item 12) and raises."""
-    _no_mesh(mesh)
+    container).
+
+    mesh: an optional (gop, tile) device mesh (parallel/mesh.py); each
+    channel then encodes through TurboShardedEncoder, members identical to
+    the single-device ones, and frames truncate to whole mesh steps."""
     cfg = cfg or CodecConfig()
     if frames.ndim != 4 or frames.shape[-1] != 3:
         raise ValueError("expected (T, H, W, 3) interleaved RGB")
-    ctx = ctx or TransformContext(cfg, device)
-    align = cfg.gop_size
+    if mesh is None:
+        ctx = ctx or TransformContext(cfg, device)
+    align = cfg.gop_size if mesh is None else cfg.gop_size * mesh.shape["gop"]
     t = frames.shape[0] - frames.shape[0] % align
     if t == 0:
         raise ValueError(f"input shorter than one {align}-frame step")
     out = []
     for c, mtype in enumerate(MEMBER_TURBO_RGB):
-        enc = TurboEncoder(frames.shape[2], frames.shape[1], cfg, ctx,
-                           member_type=mtype)
+        if mesh is not None:
+            enc = TurboShardedEncoder(frames.shape[2], frames.shape[1], mesh,
+                                      cfg, ctx, member_type=mtype)
+        else:
+            enc = TurboEncoder(frames.shape[2], frames.shape[1], cfg, ctx,
+                               member_type=mtype)
         plane = np.ascontiguousarray(frames[:t, :, :, c])
         out.append(enc.push(plane) + enc.finish())
     return b"".join(out)

@@ -3,7 +3,8 @@
 ``dct3d_tpu/native/expgolomb.c`` imports nothing, so the port compiles that
 file by its path (importing the ``dct3d_tpu`` package would load jax) with
 the system C compiler into ``native/_build/`` and binds the functions the
-port calls (the encoder, the decoders, the boundary scans, the speculative
+port calls (the encoder, the decoders to ints and to nibble planes, the
+boundary scans, the speculative
 segment walks and their catch-ups, the nibble copy and the PNG unfilter)
 through ctypes, with the argtypes of ``dct3d_tpu.native.load``.  There is
 no NumPy fallback: the host entropy paths need the library, and a missing
@@ -59,6 +60,14 @@ def load() -> ctypes.CDLL:
                 ctypes.c_void_p,  # out bytes
                 ctypes.c_size_t,  # out capacity
                 ctypes.POINTER(ctypes.c_uint64),  # bitpos (in/out)
+            ]
+            lib.eg_decode.restype = ctypes.c_int
+            lib.eg_decode.argtypes = [
+                ctypes.c_void_p,  # data
+                ctypes.c_uint64,  # nbits_avail
+                ctypes.POINTER(ctypes.c_uint64),  # bitpos (in/out)
+                ctypes.c_void_p,  # out (int32[n])
+                ctypes.c_size_t,  # n
             ]
             lib.eg_decode_planar4.restype = ctypes.c_int
             lib.eg_decode_planar4.argtypes = [

@@ -64,14 +64,18 @@ def _check_batch(n: int, max_width: int) -> None:
         raise ValueError(f"batch of {n} codewords can exceed 2^31 bits")
 
 
-def geometry(v2: torch.Tensor, carry_bits: torch.Tensor):
+def geometry(v2: torch.Tensor, carry_bits: torch.Tensor,
+             gbits: torch.Tensor | None = None):
     """Group bit geometry of (g, 256) values after a carry of carry_bits
     bits: (gstart, gend) int64, each group's first bit and end bit
     (exclusive).  Start word = gstart >> 5, phase = gstart & 31.  The bit
-    counts come from group_bits (a kernel on the card); the cumsum runs in
-    int64.  On the card v2 must start on a 16-byte boundary (group_bits
-    reads it with 16-byte loads), or group_bits raises ValueError."""
-    gbits = group_pack.group_bits(v2)
+    counts come from group_bits (a kernel on the card) unless the caller
+    has them already (``gbits``, group_bits of the same v2); the cumsum
+    runs in int64.  On the card v2 must start on a 16-byte boundary
+    (group_bits reads it with 16-byte loads), or group_bits raises
+    ValueError."""
+    if gbits is None:
+        gbits = group_pack.group_bits(v2)
     gstart = torch.cumsum(gbits, 0, dtype=torch.int64) - gbits + carry_bits
     return gstart, gstart + gbits
 
@@ -107,7 +111,8 @@ def _finish(buf_groups, gstart, gend, n: int, max_width: int):
 
 
 def pack_values(values: torch.Tensor, carry_code: torch.Tensor,
-                carry_bits: torch.Tensor, max_width: int = 32):
+                carry_bits: torch.Tensor, max_width: int = 32,
+                gbits: torch.Tensor | None = None):
     """Pack int32 coefficients after a leading partial byte.
 
     values: (n,) int32 with n a nonzero multiple of 256, codewords at most
@@ -123,14 +128,15 @@ def pack_values(values: torch.Tensor, carry_code: torch.Tensor,
     words past the total bit length unspecified (the caller slices to the
     true byte count; the plain route on the CPU zeroes them); total_bits
     and tail_byte 0-d int64 tensors on the device (tail_byte is the byte
-    holding bit total_bits - 1); overflow always False.
+    holding bit total_bits - 1); overflow always False.  ``gbits``: the
+    values' per-group bit counts when the caller has them (geometry).
     """
     n, group = values.numel(), group_pack.GROUP
     if not n or n % group:
         raise ValueError(f"pack_values needs whole {group}-value groups, got {n}")
     _check_batch(n, max_width)
     v2 = values.reshape(-1, group)
-    gstart, gend = geometry(v2, carry_bits)
+    gstart, gend = geometry(v2, carry_bits, gbits)
     buf_groups = group_pack.group_pack_values(
         v2, (gstart & 31).to(torch.int32), worst_case_w_words(group, max_width)
     )

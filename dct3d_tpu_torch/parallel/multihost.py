@@ -1,15 +1,26 @@
-"""D3MH containers: member framing, the per-GOP index member, and the
-container decoders.
+"""Multi-host scale-out and D3MH containers: member framing, the per-GOP
+index member, the container decoders, and the multi-host encode with its
+ordered gather.
 
-Host copies of the part of ``dct3d_tpu.parallel.multihost`` that one
-device needs (tests/test_torch_host.py pins each to the original): the
-framing, ``host_frame_span``, the index member (``make_index_member``,
-``parse_index``, ``parse_index_syncs``, ``IndexInfo``, ``gop_positions``),
-``container_kind`` and ``_temporal_streams``.  ``decode_container_range``
-and ``decode_multihost_container`` are the port's own: they run the port's
-decoder with a ``TransformContext`` on the caller's device.  The
-multi-host encode and gather belong to the sharding item (ROADMAP Queue 1,
-item 12).
+Host copies of ``dct3d_tpu.parallel.multihost`` (tests/test_torch_host.py
+pins each to the original): the framing, ``host_frame_span``, the index
+member (``make_index_member``, ``parse_index``, ``parse_index_syncs``,
+``IndexInfo``, ``gop_positions``), ``container_kind`` and
+``_temporal_streams``.  ``decode_container_range`` and
+``decode_multihost_container`` run the port's decoder with a
+``TransformContext`` on the caller's device.
+
+Multi-host encode, as in the JAX package: each process reads only its
+temporal span of the video (``host_frame_span``, GOP-major), encodes it on
+its own device mesh (parallel/sharding.py) into complete members, and the
+members are gathered to process 0 in process order
+(``gather_ordered_bytes``: one all-gather of the lengths, one of the
+padded bytes).  Only compressed bytes cross between processes, once.  The
+processes talk through ``torch.distributed`` with the gloo backend
+(``initialize``): the gather moves host bytes, and NCCL refuses two ranks
+on one device, which is how one card runs the two-process simulation
+(multihost_sim.py).  With one process ``gather_ordered_bytes`` returns its
+input.
 
 A container is a sequence of members, each a 16-byte header (magic, then
 uint32 LE ``(member type << 24) | frame count``, then uint64 LE payload
@@ -37,6 +48,31 @@ MEMBER_RED, MEMBER_GREEN, MEMBER_BLUE = 1, 2, 3
 #: optionally per-GOP compressed sync offsets for parallel inflate (v2).
 MEMBER_INDEX = 4
 _MAX_MEMBER_FRAMES = (1 << 24) - 1
+
+
+def initialize(coordinator_address: str | None = None,
+               num_processes: int | None = None,
+               process_id: int | None = None) -> None:
+    """Join the process group of a multi-host run: ``coordinator_address``
+    is "host:port" of process 0, which every process names.  A no-op for
+    one process (num_processes None or 1)."""
+    if num_processes in (None, 1):
+        return
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{coordinator_address}",
+        world_size=num_processes, rank=process_id,
+    )
+
+
+def _world() -> tuple[int, int]:
+    """(rank, world size) of the process group, (0, 1) without one."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
 
 
 def host_frame_span(total_frames: int, cfg: CodecConfig,
@@ -177,6 +213,117 @@ def _temporal_streams(
             f"(member type tags: {[m[2] for m in members]})"
         )
     return streams
+
+
+def gather_ordered_bytes(local_container: bytes) -> bytes | None:
+    """Gather each process's container fragment (already member-framed) to
+    process 0 in process (= stream) order.
+
+    Returns the concatenation on process 0 and None on the others; with no
+    process group, or a group of one, returns ``local_container``.  Two
+    all-gathers of CPU tensors: the lengths (int64), then the payloads
+    padded to the longest."""
+    import torch
+    import torch.distributed as dist
+
+    rank, world = _world()
+    if world == 1:
+        return local_container
+    lengths = [torch.zeros(1, dtype=torch.int64) for _ in range(world)]
+    dist.all_gather(lengths, torch.tensor([len(local_container)], dtype=torch.int64))
+    sizes = [int(n) for n in lengths]
+    padded = torch.zeros(max(1, max(sizes)), dtype=torch.uint8)
+    padded[: len(local_container)] = torch.from_numpy(
+        np.frombuffer(local_container, np.uint8).copy())
+    gathered = [torch.empty_like(padded) for _ in range(world)]
+    dist.all_gather(gathered, padded)
+    if rank != 0:
+        return None
+    return b"".join(g[:n].numpy().tobytes() for g, n in zip(gathered, sizes))
+
+
+def encode_multihost(
+    local_frames: np.ndarray,
+    width: int,
+    height: int,
+    total_frames: int,
+    mesh,
+    cfg: CodecConfig | None = None,
+    index: bool = False,
+    turbo: bool = False,
+) -> bytes | None:
+    """Encode a video whose frames are spread over processes.
+
+    ``local_frames`` is this process's span (host_frame_span).  Each
+    process encodes its GOPs on its own ``mesh`` (encode_local_members);
+    the fragments are gathered in order to process 0, which returns the
+    container (None elsewhere).  Each process's span is complete members:
+    one stream across processes would serialize them on the DEFLATE and
+    Exp-Golomb carry state."""
+    return gather_ordered_bytes(
+        encode_local_members(local_frames, width, height, mesh, cfg,
+                             index=index, turbo=turbo))
+
+
+def encode_local_members(
+    local_frames: np.ndarray,
+    width: int,
+    height: int,
+    mesh,
+    cfg: CodecConfig | None = None,
+    index: bool = False,
+    turbo: bool = False,
+) -> bytes:
+    """This process's member-framed fragment of its frame span, the local
+    half of encode_multihost (no communication).
+
+    Reference profile: one member from ShardedEncoder over the whole mesh
+    steps (and its index member with ``index``), then the tail GOPs that do
+    not fill a mesh step as a member of their own from a single-device
+    encoder on shard 0's device (and its index member).  Turbo: the
+    sharded encoder's per-GOP members, then the tail's."""
+    from ..codec.encoder import StreamingEncoder
+    from ..codec.transform import TransformContext
+    from .sharding import ShardedEncoder
+
+    cfg = cfg or CodecConfig()
+    step = cfg.gop_size * mesh.shape["gop"]
+    t_all = local_frames.shape[0] - local_frames.shape[0] % cfg.gop_size
+    t_main = t_all - t_all % step
+    tail_ctx = (TransformContext(cfg, mesh.devices[0]) if t_all > t_main
+                else None)
+    if turbo:
+        # Turbo encoders emit complete per-GOP members already; the global
+        # container is the in-order concatenation across processes.
+        from ..codec.turbo import TurboEncoder, TurboShardedEncoder
+
+        members = b""
+        if t_main:
+            tse = TurboShardedEncoder(width, height, mesh, cfg)
+            members += b"".join(tse.push(local_frames[i : i + step])
+                                for i in range(0, t_main, step)) + tse.finish()
+        if t_all > t_main:
+            te = TurboEncoder(width, height, cfg, tail_ctx)
+            members += te.push(local_frames[t_main:t_all]) + te.finish()
+        return members
+    members = b""
+    if t_main:
+        enc = ShardedEncoder(width, height, mesh, cfg)
+        chunks = [enc.push(local_frames[i : i + step]) for i in range(0, t_main, step)]
+        chunks.append(enc.finish())
+        members += _member(b"".join(chunks), t_main)
+        if index:
+            members += make_index_member(enc.gop_bit_ends)
+    if t_all > t_main:
+        # Tail GOPs that do not fill the gop mesh axis: their own member (a
+        # span is balanced to one GOP, so the tail is at most mesh gop - 1
+        # GOPs).
+        tenc = StreamingEncoder(width, height, cfg, tail_ctx)
+        members += _member(tenc.push(local_frames[t_main:t_all]) + tenc.finish(),
+                           t_all - t_main)
+        if index:
+            members += make_index_member(tenc.gop_bit_ends)
+    return members
 
 
 def _index_kwargs(frames: int, idx: IndexInfo, cfg: CodecConfig) -> dict:

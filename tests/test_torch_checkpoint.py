@@ -21,6 +21,7 @@ from dct3d_tpu_torch import (
     resume_info,
 )
 from dct3d_tpu_torch.parallel import multihost
+from dct3d_tpu_torch.parallel.mesh import make_mesh
 
 torch.set_num_threads(2)
 
@@ -139,8 +140,9 @@ def test_resume_refuses_other_parameters(clip, tmp_path):
 
 def test_missing_file_mesh_and_device(tmp_path):
     assert resume_info(str(tmp_path / "none")) == (0, 0)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        CheckpointingEncoder(str(tmp_path / "m"), W, H, device="cpu", mesh=object())
+    mesh = make_mesh(2, 1, [torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="not a multiple of the mesh gop axis"):
+        CheckpointingEncoder(str(tmp_path / "m"), W, H, checkpoint_gops=3, mesh=mesh)
     with pytest.raises(ValueError, match="device"):
         CheckpointingEncoder(str(tmp_path / "d"), W, H)
     with _port(str(tmp_path / "g"), "reference") as enc:

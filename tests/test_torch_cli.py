@@ -343,10 +343,10 @@ def test_png_and_y4m_input_and_y4m_output(tmp_path):
 ])
 def test_unported_flags_exit_2(work, tmp_path, capsys, argv, item):
     """The flags of items still to port exit 2 and name their item; those
-    of items 7 and 11, ported since, encode the JAX CLI's file and decode
-    it with the same flags, naming no item."""
+    of items 7, 11 and 12, ported since, encode the JAX CLI's file and
+    decode it with the same flags, naming no item."""
     _, src, _ = work
-    if item in (7, 11):
+    if item in (7, 11, 12):
         files = []
         for main, extra, tag in ((jcli.main, [], "j"), (cli.main, CPU, "p")):
             out = str(tmp_path / f"o.{tag}")

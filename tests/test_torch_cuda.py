@@ -502,3 +502,27 @@ def test_rgb_and_checkpoint_on_card_equal_cpu(dev, tmp_path):
             ck.push(rgb[..., 0])
         files.append(open(p, "rb").read())
     assert files[0] == files[1]
+
+
+@pytest.mark.parametrize("blocks", [8, 4], ids=["8x8x8", "4x4x4"])
+def test_sharded_on_card_equals_single_device(dev, blocks):
+    """A (2, 3) mesh of the one card: the sharded stream (4x4x4: tile
+    shards of 5 cubes a GOP, not whole groups, so K5 with the phase
+    pseudo-codeword) and pixels equal one device's, and turbo's too."""
+    from dct3d_tpu_torch.codec import turbo
+    from dct3d_tpu_torch.parallel.mesh import make_mesh
+    from dct3d_tpu_torch.parallel.sharding import ShardedDecoder, ShardedEncoder
+
+    cfg = CodecConfig(block_w=blocks, block_h=blocks, block_d=blocks, turbo_codec="zlib")
+    h, w = 3 * blocks, 5 * blocks
+    clip = synthetic_video(4 * cfg.gop_size, h, w, seed=8)
+    mesh = make_mesh(2, 3, [dev] * 6)
+    ctx = TransformContext(cfg, dev)
+    enc = ShardedEncoder(w, h, mesh, cfg)
+    data = enc.push(clip) + enc.finish()
+    assert data == encode_video(clip, cfg, ctx)
+    out = ShardedDecoder(w, h, mesh, cfg).decode(data, clip.shape[0])
+    np.testing.assert_array_equal(out, decode_video(data, w, h, clip.shape[0], cfg, ctx))
+    tdata = turbo.TurboShardedEncoder(w, h, mesh, cfg).push(clip)
+    assert tdata == encode_turbo_video(clip, cfg, ctx)
+    np.testing.assert_array_equal(turbo.TurboShardedDecoder(w, h, mesh, cfg).decode(tdata), out)

@@ -346,6 +346,75 @@ def test_push_values_equals_original(workers):
     theirs.close()
 
 
+@pytest.mark.parametrize("bitpos", [0, 3, 7])
+def test_decode_values_equals_original(bitpos):
+    """decode_values (C eg_decode) at every bit phase: the original's ints
+    and end position, and EOFError on a truncated stream as the original
+    raises."""
+    vals = _values(bitpos, 4099)
+    data, nbits = entropy.encode_values(vals, bitpos)
+    got, end = entropy.decode_values(data, vals.size, bitpos)
+    want, jend = j_entropy.decode_values(data, vals.size, bitpos)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, vals)
+    assert end == jend == nbits
+    short = data[: len(data) // 2]
+    for fn in (entropy.decode_values, j_entropy.decode_values):
+        with pytest.raises(EOFError):
+            fn(short, vals.size, bitpos)
+
+
+@pytest.mark.parametrize("chunk", [64, 1 << 20])
+def test_inflate_window_equals_original(chunk):
+    """InflateWindow: the same pumps, spans, scans, drops, end bits and
+    high-water mark as the original; corrupt input raises ValueError."""
+    clip = synthetic_video(24, 32, 40, seed=3)
+    data = encoder.encode_video(clip, device="cpu")
+    n = 32 * 40 * 8
+    ours, theirs = entropy.InflateWindow(data, chunk), j_entropy.InflateWindow(data, chunk)
+    pos = [0, 0]
+    for win, k in ((ours, 0), (theirs, 1)):
+        for _ in range(3):
+            pos[k] = win.scan(n, pos[k], 2 * n)
+            win.drop_before(pos[k])
+    assert pos[0] == pos[1]
+    assert ours.end_bit == theirs.end_bit and ours.max_held == theirs.max_held
+    for a, b in ((ours.array(pos[0] - 5), theirs.array(pos[1] - 5)),
+                 (ours.array(0, 100), theirs.array(0, 100))):
+        np.testing.assert_array_equal(a[0], b[0])
+        assert a[1] == b[1]
+    assert ours.ensure_bit(1 << 40) is theirs.ensure_bit(1 << 40) is False
+    assert ours.pump() is theirs.pump() is False
+    with pytest.raises(ValueError, match="corrupt"):
+        entropy.InflateWindow(b"\x78\xda garbage").pump()
+
+
+@pytest.mark.parametrize("indexed", [False, True], ids=["scan", "index"])
+def test_parallel_chunks_bounded_equals_original(indexed):
+    """parallel_chunks_bounded over an InflateWindow: the original's chunk
+    values and end positions, in order, from a scan or an index; a
+    truncated stream raises EOFError in both."""
+    clip = synthetic_video(40, 32, 40, seed=4)
+    enc = encoder.StreamingEncoder(40, 32, config.CodecConfig(), device="cpu")
+    data = enc.push(clip) + enc.finish()
+    n = 32 * 40 * 8
+    positions = multihost.gop_positions(enc.gop_bit_ends, 5, 8, 40) if indexed else None
+    got = list(entropy.parallel_chunks_bounded(
+        entropy.InflateWindow(data, 256), n, 5, entropy.decode_values, 2, positions))
+    want = list(j_entropy.parallel_chunks_bounded(
+        j_entropy.InflateWindow(data, 256), n, 5, j_entropy.decode_values, 2, positions))
+    assert [g[1] for g in got] == [w[1] for w in want] == enc.gop_bit_ends
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g[0], w[0])
+    import zlib
+
+    cut = zlib.compress(zlib.decompress(data)[:-300])
+    for mod in (entropy, j_entropy):
+        with pytest.raises(EOFError):
+            list(mod.parallel_chunks_bounded(mod.InflateWindow(cut), n, 5,
+                                             mod.decode_values, 2, positions))
+
+
 def test_speculative_helpers_equal_original():
     """The tuning constants, and _pack_vals_into at every nibble offset
     and length parity, equal the originals'."""
@@ -553,8 +622,10 @@ def test_port_imports_no_jax_subprocess():
             "dct3d_tpu_torch.io.png", "dct3d_tpu_torch.io.y4m",
             "dct3d_tpu_torch.io.synthetic", "dct3d_tpu_torch.io.rgb",
             "dct3d_tpu_torch.io.render", "dct3d_tpu_torch.codec.rgb_codec",
-            "dct3d_tpu_torch.codec.checkpoint"} <= set(mods)
-    assert len(mods) >= 35
+            "dct3d_tpu_torch.codec.checkpoint", "dct3d_tpu_torch.parallel.mesh",
+            "dct3d_tpu_torch.parallel.sharding", "dct3d_tpu_torch.parallel.dryrun",
+            "dct3d_tpu_torch.parallel.multihost_sim"} <= set(mods)
+    assert len(mods) >= 39
 
 
 def test_cli_runs_without_jax_subprocess(tmp_path):

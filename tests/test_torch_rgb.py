@@ -24,6 +24,7 @@ from dct3d_tpu_torch import (
 )
 from dct3d_tpu_torch.codec import rgb_codec, turbo
 from dct3d_tpu_torch.parallel import multihost
+from dct3d_tpu_torch.parallel.mesh import make_mesh
 
 torch.set_num_threads(2)
 
@@ -134,9 +135,11 @@ def test_errors_and_refusals(clip, ctx, boxes):
         encode_rgb_video(clip[..., 0], ctx=ctx)
     with pytest.raises(ValueError, match="shorter"):
         encode_turbo_rgb_video(clip[:7], ctx=ctx)
+    mesh = make_mesh(2, 1, [torch.device("cpu")] * 2)
     for fn in (encode_rgb_video, encode_turbo_rgb_video):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn(clip, ctx=ctx, mesh=object())
+        # A mesh aligns to whole mesh steps: 8 frames are none on a 2-GOP axis.
+        with pytest.raises(ValueError, match="shorter than one 16-frame step"):
+            fn(clip[:8], ctx=ctx, mesh=mesh)
         with pytest.raises(ValueError, match="device"):
             fn(clip)
     gray = multihost._member(encode_video(clip[..., 0], ctx=ctx), T)
