@@ -8,8 +8,8 @@ and decode of the bench clip (1920x1080, 64 frames) at 8x8x8 cubes, and the
 4x4x4 paths — through their public entry points, and checks on the card:
 
   1. device   the card, its power limit, torch and CUDA versions;
-  2. build    nvcc builds the nine kernels (csrc/, one nvcc per source, in
-              parallel) into one library;
+  2. build    nvcc builds the eleven kernels (csrc/, one nvcc per source,
+              in parallel) into one library;
   3. kernels  K1-K4, group_bits and K6-K8 at one 1080p GOP's main-path
               shapes, and K5 at one padded-portrait 4x4x4 GOP's (46,368
               groups), are byte-equal to their plain PyTorch versions run on
@@ -101,11 +101,36 @@ and decode of the bench clip (1920x1080, 64 frames) at 8x8x8 cubes, and the
               6-shard dry run (dct3d_tpu_torch.parallel.dryrun); sharded
               fps beside the single-device fps of the same phase (not a
               scaling figure: one card runs every shard).
+ 16. bf16     the bf16 profile (compute_dtype="bfloat16"): the bf16 forms
+              of K1 and K4 byte-equal to their plain versions at one 1080p
+              GOP and at 200x136 (25 block columns), timed (CUDA events,
+              and torch.profiler's device time) beside their bounds (phase
+              3 runs before the main path; these rows take their launches
+              from this phase's reference path); the 8x8x8
+              parallel-sink encode and decode of the bench clip: bpp within
+              0.0005 and PSNR within 0.02 dB of the JAX package's bf16
+              figures (constants below; payload equality printed), GOP 0's
+              ints, and the clip's GOP by GOP, against the plain CPU bf16
+              quantize (which tests/test_torch_bf16.py holds to the JAX
+              package's ints) and the ints of a
+              (2, 3) mesh's stream against one device's, each within 10
+              per million ints (cuBLAS may sum the float32 products in
+              another order than the CPU and move a bf16 rounding), GOP 0's
+              pixels within 1 LSB on < 1 % of the plain CPU bf16 decode,
+              the bf16 stream through the f32 decoder within 0.7 dB of the
+              f32 stream; turbo zlib-6 pixels equal to the bf16 reference
+              decode; 4x4x4 against the JAX bf16 figures; the CLI's --dtype
+              bf16 file and pixels equal to the library's, --parity
+              --dtype bf16 exits 2; the device steps and the GEMMs, f32
+              beside bf16 (chained CUDA events over the clip, and at GOP 0
+              torch.profiler's device time), and end-to-end fps,
+              alternated.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after; every kernel of the path must have launched, and on the 4x4x4
 paths K1 and K4 (8x8x8 cubes only) must not have.  Phases 9-13, the CLI
-paths of phase 14 and the mesh paths of phase 15 each do the same.
+paths of phase 14, the mesh paths of phase 15 and the bf16 paths of phase
+16 (where the float32 forms of K1 and K4 must not run) each do the same.
 
 Each phase prints one JSON line.  Any failed check raises, and the script
 exits non-zero without printing a result; with no card it fails in phase 1.
@@ -176,6 +201,11 @@ PAIR = np.concatenate([np.arange(0, 512, 2), np.arange(1, 512, 2)])
 BLOCK4 = {"block_w": 4, "block_h": 4, "block_d": 4}
 BLOCK_CFG = {"deflate_workers": -1, **BLOCK4}
 TURBO_BLOCK_CFG = {**TURBO_CFG, **BLOCK4}
+# The bf16 phase: the fast profile (`encode --dtype bfloat16`) at 8x8x8
+# and at 4x4x4, parallel DEFLATE-9.
+BF16 = {"compute_dtype": "bfloat16"}
+BF16_CFG = {"deflate_workers": -1, **BF16}
+BF16_BLOCK_CFG = {**BLOCK_CFG, **BF16}
 # The portrait screen of an iPhone 12/13/14 (Apple's display spec,
 # 2532-by-1170 pixels): `--pad` edge-replicates it to 1172x2532, 293 x 633
 # = 185,469 cubes per 4-frame GOP, so each GOP's batch is 46,367.25 groups
@@ -208,6 +238,21 @@ JAX_RGB_CONSTANTS = {
     "turbo_rgb": {"bpp": 1.730354938271605,
                   "digest": "42a72c17717a16cedcad8b47b3b47792de48908d2e2c0df2bb77ccf98d624535"},
 }
+# The JAX package's bf16 profile on the bench clip, at 8x8x8 under BF16_CFG
+# and at 4x4x4 under BF16_BLOCK_CFG: bits per pixel, the PSNR of its bf16
+# decode and the sha256 of the decompressed payload, printed by
+#   JAX_PLATFORMS=cpu python tools/jax_bf16_constants.py
+JAX_BF16_CONSTANTS = {
+    "8x8x8": {"bpp": 0.313789966724537, "psnr_db": 32.86090146299263,
+              "digest": "fb8e0b08bc091eb674f08a697c4a3bd36b10b1371a8eafba18ad5f8160fea14e"},
+    "4x4x4": {"bpp": 1.0407333863811727, "psnr_db": 34.91440141041093,
+              "digest": "685bd3ae2570a65e6a023cdbc800cf1ade1e7c4c9394eb7fea27577a312808e6"},
+}
+# Ints the card's bf16 quantize may round otherwise than the plain CPU
+# version's, or a tile shard's matmul otherwise than one device's (cuBLAS
+# sums the float32 products in another order, which can move a bf16
+# rounding), per million.
+BF16_INTS_PER_M = 10.0
 
 
 def synthetic_clip(t: int, h: int, w: int) -> np.ndarray:
@@ -289,6 +334,27 @@ def median_ms(fn, reps: int = 15) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def profiled_us(fn, reps: int = 10) -> dict:
+    """Device us per call of fn after warm-up: the time torch.profiler
+    records on the card (kernels, copies, fills), summed ("us", without
+    the host's launch gaps), and its five largest items by name."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total:
+            name = e.key.removeprefix("void ")[:70]
+            by_name[name] = by_name.get(name, 0.0) + e.self_device_time_total / reps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"us": sum(by_name.values()), "top": dict(top)}
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -822,6 +888,20 @@ def turbo_device_ms(frames_dev: torch.Tensor, ctx, data: bytes, w: int,
     return median_ms(encode_device, reps=5), median_ms(decode_device, reps=5)
 
 
+def uploaded_planes(data: bytes, positions: list[int], ctx, w: int, h: int) -> list:
+    """Each GOP's planar4_to_frames inputs (nibble plane, exception
+    indices and values, dense DC) of a reference-profile stream, decoded on
+    the host and uploaded to ctx.device."""
+    raw = np.frombuffer(zlib.decompress(data), np.uint8)
+    planes = []
+    for p in positions:
+        plane, ei, ev, _ = entropy.decode_values_planar4(raw, w * h * ctx.cfg.gop_size, p)
+        dc, ei, ev = decoder._split_dc_flat(plane, ei, ev, ctx.cfg.cube_size)
+        planes.append([torch.from_numpy(a).to(ctx.device)
+                       for a in (plane, ei.astype(np.int64), ev, dc)])
+    return planes
+
+
 def device_ms(frames_dev: torch.Tensor, ctx, data: bytes, positions: list[int],
               w: int, h: int) -> tuple[float, float]:
     """Median CUDA-event ms of the reference profile's device steps over a
@@ -836,13 +916,7 @@ def device_ms(frames_dev: torch.Tensor, ctx, data: bytes, positions: list[int],
             step = transform.encode_step(frames_dev[g : g + gop], ctx, *carry)
             carry = (step.carry_code, step.carry_bits)
 
-    raw = np.frombuffer(zlib.decompress(data), np.uint8)
-    planes = []
-    for p in positions:
-        plane, ei, ev, _ = entropy.decode_values_planar4(raw, w * h * gop, p)
-        dc, ei, ev = decoder._split_dc_flat(plane, ei, ev, ctx.cfg.cube_size)
-        planes.append([torch.from_numpy(a).to(frames_dev.device)
-                       for a in (plane, ei.astype(np.int64), ev, dc)])
+    planes = uploaded_planes(data, positions, ctx, w, h)
 
     def decode_device():
         for pl in planes:
@@ -1554,6 +1628,253 @@ def phase_mesh(clip: np.ndarray, lib: dict, smi: str) -> None:
          **report)
 
 
+def phase_bf16_kernels(gop0: np.ndarray, card: str) -> list[dict]:
+    """The bf16 forms of K1 and K4 on the card against their plain versions
+    on the CPU, byte for byte: at one 1080p GOP (timed) and at 200x136, whose
+    25 block columns fill no run of 16."""
+    rows = []
+    ctx = port.TransformContext(port.CodecConfig(**BF16), "cuda")
+    frames = torch.from_numpy(gop0).to("cuda")
+    small = torch.from_numpy(small_clip(8, 136, 200, seed=16)).to("cuda")
+    for f in (small, frames):
+        cubes, sums = relayout.frames_to_cubes(f, torch.bfloat16)
+        p_cubes, p_sums = relayout.frames_to_cubes_plain(f.cpu(), torch.bfloat16)
+        check(cubes.dtype == torch.bfloat16 and torch.equal(cubes.cpu(), p_cubes)
+              and torch.equal(sums.cpu(), p_sums),
+              f"K1 bf16 differs from its plain version at {tuple(f.shape)}")
+    add_row(rows, card, "frames_to_cubes_bf16", "dct3d_tpu_torch/csrc/relayout.cu",
+            "dct3d_tpu/ops/relayout.py:216", max_abs_err(cubes, p_cubes),
+            median_ms(lambda: relayout.frames_to_cubes(frames, torch.bfloat16)),
+            median_ms(lambda: relayout.frames_to_cubes_plain(frames, torch.bfloat16)),
+            tensor_bytes(frames, cubes, sums))
+    for f in (small, frames):
+        q = transform.quantize_step(f, ctx)
+        pixels = transform._dequant_matmul(q[:, 0::2], q[:, 1::2], ctx.dec_me, ctx.dec_mo)
+        h, w = f.shape[1:]
+        k4 = relayout.cubes_to_frames(pixels, h, w)
+        p4 = relayout.cubes_to_frames_plain(pixels.cpu(), h, w)
+        check(pixels.dtype == torch.bfloat16 and torch.equal(k4.cpu(), p4),
+              f"K4 bf16 differs from its plain version at {tuple(f.shape)}")
+    add_row(rows, card, "cubes_to_frames_bf16", "dct3d_tpu_torch/csrc/relayout.cu",
+            "dct3d_tpu/ops/relayout.py:258", max_abs_err(k4, p4),
+            median_ms(lambda: relayout.cubes_to_frames(pixels, H, W)),
+            median_ms(lambda: relayout.cubes_to_frames_plain(pixels, H, W)),
+            tensor_bytes(pixels, k4))
+    emit(phase="kernels", bf16="K1 and K4 bf16 byte-equal to their plain versions at "
+         "1920x1080x8 and 200x136x8", card=card)
+    return rows
+
+
+def content_vs_jax_bf16(run: str, data: bytes, out: np.ndarray, clip: np.ndarray) -> dict:
+    """A bf16 run's bpp within 0.0005 and PSNR within 0.02 dB of the JAX
+    package's (JAX_BF16_CONSTANTS); whether its payload equals the JAX
+    package's is printed, not gated: cuBLAS may round a bf16 product
+    otherwise than XLA on the CPU."""
+    want = JAX_BF16_CONSTANTS[run]
+    bpp = port.bits_per_pixel(len(data), W, H, T)
+    psnr = port.psnr(clip, out)
+    check(abs(bpp - want["bpp"]) <= 0.0005, f"bf16 {run}: bpp {bpp} vs JAX {want['bpp']}")
+    check(abs(psnr - want["psnr_db"]) <= 0.02,
+          f"bf16 {run}: psnr {psnr} vs JAX {want['psnr_db']}")
+    return {"bpp": bpp, "psnr_db": psnr, "jax_bpp": want["bpp"], "jax_psnr_db": want["psnr_db"],
+            "payload_equals_jax":
+                hashlib.sha256(zlib.decompress(data)).hexdigest() == want["digest"]}
+
+
+def ints_differing(a: np.ndarray, b: np.ndarray, what: str) -> dict:
+    """Count of ints that differ, held to BF16_INTS_PER_M per million."""
+    n = int((a != b).sum())
+    per_m = 1e6 * n / a.size
+    check(per_m <= BF16_INTS_PER_M, f"{what}: {n} ints differ ({per_m:.3f} per 1M)")
+    return {"ints": int(a.size), "ints_differing": n, "ints_differing_per_1m": per_m}
+
+
+def profile_steps() -> dict:
+    """torch.profiler's device time (profiled_us) at one 1080p GOP of the
+    bench clip, f32 and bf16: the encode step, the decode step on the
+    GOP's uploaded plane, the encode GEMM and the decode's two GEMMs with
+    their add; and the bf16 forms of K1 and K4.  Run by phase 16 in a
+    process of its own (`python3 chip_smoke.py --profile-steps`): in the
+    long smoke process the profiler lost some GEMM kernels' records."""
+    clip = synthetic_clip(8, H, W)
+    frames = torch.from_numpy(clip).to("cuda")
+    zero = torch.zeros((), dtype=torch.int64, device="cuda")
+    out = {}
+    for name, cfg in (("f32", port.CodecConfig()), ("bf16", port.CodecConfig(**BF16))):
+        c = port.TransformContext(cfg, "cuda")
+        plane = uploaded_planes(port.encode_video(clip, cfg, c), [0], c, W, H)[0]
+        cubes, _ = transform._cubes_and_sums(frames, cfg)
+        half = torch.zeros((cubes.shape[0], 256), dtype=c.dtype, device="cuda")
+        out[name] = {
+            "encode_step": profiled_us(lambda: transform.encode_step(frames, c, zero, zero)),
+            "decode_step": profiled_us(lambda: transform.planar4_to_frames(*plane, c, H, W)),
+            "encode_gemm": profiled_us(lambda: cubes @ c.enc_t),
+            "decode_gemms": profiled_us(lambda: half @ c.dec_me + half @ c.dec_mo)}
+    q = transform.quantize_step(frames, c)
+    pixels = transform._dequant_matmul(q[:, 0::2], q[:, 1::2], c.dec_me, c.dec_mo)
+    out["frames_to_cubes_bf16"] = profiled_us(
+        lambda: relayout.frames_to_cubes(frames, torch.bfloat16))
+    out["cubes_to_frames_bf16"] = profiled_us(lambda: relayout.cubes_to_frames(pixels, H, W))
+    return out
+
+
+def phase_bf16(clip: np.ndarray, lib: dict, smi: str, rows: list[dict]) -> None:
+    """The bf16 profile (compute_dtype="bfloat16") through the public entry
+    points, each path with launch counts of its own (module docstring,
+    phase 16); fills the launches of the bf16 kernels' rows from the
+    reference path's counts and their device time from profile_steps."""
+    cfg = port.CodecConfig(**BF16_CFG)
+    ctx = port.TransformContext(cfg, "cuda")
+    ref8 = ("frames_to_cubes_bf16", "group_bits", "group_pack_values", "splice",
+            "cubes_to_frames_bf16")
+    f32_forms = ("frames_to_cubes", "cubes_to_frames")
+    report, launches = {}, {}
+
+    # 8x8x8, reference profile, parallel sink.
+    kernels.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    data, ends, syncs = encode_clip(clip, cfg, ctx)
+    enc_s = time.perf_counter() - t0
+    positions = [0] + ends[:-1]
+    t0 = time.perf_counter()
+    out = port.decode_video(data, W, H, T, cfg, ctx, positions=positions, sync_offsets=syncs)
+    dec_s = time.perf_counter() - t0
+    launches["reference"] = path_launches("bf16", ref8, f32_forms + ("group_pack_codes",))
+    for r in rows:
+        r["launches"] = launches["reference"].get(r["name"], 0)
+    report["reference"] = content_vs_jax_bf16("8x8x8", data, out, clip)
+    q = card_ints(clip, ctx)
+    check(np.array_equal(stream_ints(data, clip.size), q.reshape(-1).numpy()),
+          "the bf16 stream does not carry the card's ints")
+    cpu_ctx = port.TransformContext(cfg, "cpu")
+    q_cpu = torch.cat([transform.quantize_step(torch.from_numpy(clip[g : g + 8]), cpu_ctx)
+                       for g in range(0, T, 8)])
+    rows0 = W * H * 8 // 512
+    report["gop0_vs_cpu"] = ints_differing(q[:rows0].numpy(), q_cpu[:rows0].numpy(),
+                                           "bf16 GOP 0 ints, card vs plain CPU")
+    report["clip_vs_cpu"] = {**ints_differing(q.numpy(), q_cpu.numpy(),
+                                              "bf16 ints of the clip, card vs plain CPU"),
+                             "by_gop": [int((a != b).sum())
+                                        for a, b in zip(q.chunk(T // 8), q_cpu.chunk(T // 8))]}
+    cpu_gop0 = port.decode_frame_range(data, W, H, 0, 8, cfg, device="cpu", positions=positions)
+    d = np.abs(out[:8].astype(np.int16) - cpu_gop0)
+    mismatch = float((d > 0).mean())
+    check(int(d.max()) <= 1 and mismatch < 0.01,
+          f"bf16 GPU decode vs plain CPU decode: max {int(d.max())}, rate {mismatch}")
+    report["gop0_pixels_vs_cpu"] = {"max_abs_diff": int(d.max()), "mismatch_rate": mismatch}
+    f32_cfg = port.CodecConfig(deflate_workers=-1)
+    f32_ctx = port.TransformContext(f32_cfg, "cuda")
+    f32_of_bf16 = port.psnr(clip, port.decode_video(data, W, H, T, f32_cfg, f32_ctx,
+                                                     positions=positions, sync_offsets=syncs))
+    f32_psnr = port.psnr(clip, lib["out_par"])
+    check(f32_psnr - f32_of_bf16 < 0.7,
+          f"the f32 decoder's PSNR of the bf16 stream {f32_of_bf16} vs the f32 stream's {f32_psnr}")
+    report["f32_decoder_psnr_db"] = f32_of_bf16
+    report["f32_stream_psnr_db"] = f32_psnr
+
+    # Turbo, zlib-6 wire.
+    tcfg = port.CodecConfig(**TURBO_CFG, **BF16)
+    tctx = port.TransformContext(tcfg, "cuda")
+    kernels.LAUNCHES.clear()
+    tdata = port.encode_turbo_video(clip, tcfg, tctx)
+    tout = port.decode_turbo_container(tdata, W, H, tcfg, tctx)
+    launches["turbo"] = path_launches("bf16 turbo", ("frames_to_cubes_bf16", "compact_groups",
+                                                     "plane_to_wire", "wire_to_plane",
+                                                     "cubes_to_frames_bf16"), f32_forms)
+    check(np.array_equal(tout, out), "bf16 turbo pixels differ from the bf16 reference decode")
+    report["turbo"] = {"bpp": port.bits_per_pixel(len(tdata), W, H, T),
+                       "pixels_equal_reference": True}
+
+    # 4x4x4 on the bench clip.
+    bcfg = port.CodecConfig(**BF16_BLOCK_CFG)
+    bctx = port.TransformContext(bcfg, "cuda")
+    kernels.LAUNCHES.clear()
+    bdata, bends, bsyncs = encode_clip(clip, bcfg, bctx)
+    bout = port.decode_video(bdata, W, H, T, bcfg, bctx, positions=[0] + bends[:-1],
+                             sync_offsets=bsyncs)
+    launches["block4"] = path_launches(
+        "bf16 4x4x4", ("group_bits", "group_pack_values", "splice"),
+        f32_forms + ("frames_to_cubes_bf16", "cubes_to_frames_bf16", "group_pack_codes"))
+    report["block4"] = content_vs_jax_bf16("4x4x4", bdata, bout, clip)
+
+    # The command line: --dtype bf16 encode and decode; --parity refuses it.
+    with tempfile.TemporaryDirectory() as d:
+        src, box, dec = (os.path.join(d, n) for n in ("src.raw", "bf16.d3v", "dec.raw"))
+        clip.tofile(src)
+        geo = (str(W), str(H))
+        launches["cli"] = cli_path("bf16", ref8, [
+            ("encode", src, box, *geo, "--dtype", "bf16"),
+            ("decode", box, dec, *geo, "--dtype", "bf16")], f32_forms)
+        with open(box, "rb") as f:
+            members = multihost.split_members(f.read())
+        check(members[0][1] == data and multihost.parse_index(members[1][1]) == ends,
+              "the CLI's bf16 container is not the library's stream and index")
+        check(np.array_equal(np.fromfile(dec, np.uint8).reshape(T, H, W), out),
+              "CLI bf16 pixels differ from the library's")
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["encode", src, box, *geo, "--dtype", "bf16", "--parity"])
+        check(rc == 2 and "--parity" in err.getvalue(),
+              f"--parity --dtype bf16: rc {rc}, {err.getvalue()!r}")
+    report["cli"] = {"container_equals_library": True, "parity_exits_2": True}
+
+    # A (2, 3) mesh of cuda:0 against one device, serial sink.
+    scfg = port.CodecConfig(**BF16)
+    sctx = port.TransformContext(scfg, "cuda")
+    single, _, _ = encode_clip(clip, scfg, sctx)
+    kernels.LAUNCHES.clear()
+    mdata, _ = sharded(clip, cuda_mesh(2, 3), scfg)
+    launches["mesh_2x3"] = path_launches("bf16 mesh", ref8[:-1], f32_forms)
+    report["mesh_2x3"] = {"stream_equals_single_device": mdata == single, **ints_differing(
+        stream_ints(mdata, clip.size), stream_ints(single, clip.size),
+        "bf16 (2, 3) mesh ints vs one device's")}
+
+    # Timing: device steps on resident frames, f32 and bf16 in turns; the
+    # encode GEMM alone at one GOP; end-to-end fps, alternated.
+    frames_dev = torch.from_numpy(clip).to("cuda")
+    f32_positions = [0] + lib["ends"][:-1]
+    steps = {"f32": [], "bf16": []}
+    for name in ("f32", "bf16", "bf16", "f32"):
+        args = ((f32_ctx, lib["par"], f32_positions) if name == "f32"
+                else (ctx, data, positions))
+        steps[name].append(device_ms(frames_dev, *args, W, H))
+    # The GEMMs alone at GOP 0, CUDA events; then torch.profiler's device
+    # time of the steps, the GEMMs and K1/K4 bf16 from a fresh process
+    # (profile_steps).
+    gemm = {}
+    for name, c in (("f32", f32_ctx), ("bf16", ctx)):
+        cubes, _ = transform._cubes_and_sums(frames_dev[:8], c.cfg)
+        half = torch.zeros((cubes.shape[0], 256), dtype=c.dtype, device="cuda")
+        gemm[f"{name}_encode_gemm_us"] = 1e3 * median_ms(lambda: cubes @ c.enc_t)
+        gemm[f"{name}_decode_gemms_us"] = 1e3 * median_ms(
+            lambda: half @ c.dec_me + half @ c.dec_mo)
+    del frames_dev
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--profile-steps"],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(res.returncode == 0, f"--profile-steps: rc {res.returncode}\n{res.stderr[-3000:]}")
+    profiled = json.loads(res.stdout.strip().splitlines()[-1])
+    for r in rows:
+        r["device_us"] = profiled[r["name"]]["us"]
+    times = {k: [] for k in ("f32_enc", "bf16_enc", "f32_dec", "bf16_dec")}
+    for _ in range(3):
+        times["f32_enc"].append(_timed(lambda: encode_clip(clip, f32_cfg, f32_ctx)))
+        times["bf16_enc"].append(_timed(lambda: encode_clip(clip, cfg, ctx)))
+        times["f32_dec"].append(_timed(lambda: port.decode_video(
+            lib["par"], W, H, T, f32_cfg, f32_ctx, positions=f32_positions,
+            sync_offsets=lib["syncs"])))
+        times["bf16_dec"].append(_timed(lambda: port.decode_video(
+            data, W, H, T, cfg, ctx, positions=positions, sync_offsets=syncs)))
+    times["bf16_enc"].append(enc_s)
+    times["bf16_dec"].append(dec_s)
+    gop_steps = T // 8
+    emit(phase="bf16", card=smi, launches=launches, **report, **gemm,
+         profiled={k: v for k, v in profiled.items() if k in ("f32", "bf16")},
+         encode_step_us={k: [1e3 * e / gop_steps for e, _ in v] for k, v in steps.items()},
+         decode_step_us={k: [1e3 * dd / gop_steps for _, dd in v] for k, v in steps.items()},
+         **{f"{k}_fps": T / min(v) for k, v in times.items()})
+
+
 def main() -> None:
     card, smi = phase_device()
     phase_build()
@@ -1567,6 +1888,7 @@ def main() -> None:
     trows = phase_turbo_kernels(clip[:8], ctx, card)
     brows = phase_k5_kernels(portrait_clip()[:4],
                              port.TransformContext(port.CodecConfig(**BLOCK_CFG), "cuda"), card)
+    bf16_rows = phase_bf16_kernels(clip[:8], card)
 
     # Reference-profile main path: encode, then decode, through the public
     # entry points.
@@ -1694,12 +2016,16 @@ def main() -> None:
     phase_checkpoint(clip, lib, smi)
     phase_cli(clip, lib, portrait_cropped, rgb_lib, smi)
     phase_mesh(clip, {**lib, "tdata": tdata}, smi)
+    phase_bf16(clip, lib, smi, bf16_rows)
 
-    print(json.dumps({"kernels": rows + brows + trows}), flush=True)
+    print(json.dumps({"kernels": rows + brows + trows + bf16_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--profile-steps"]:
+        print(json.dumps(profile_steps()), flush=True)
+    else:
+        main()

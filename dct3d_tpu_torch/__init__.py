@@ -4,9 +4,10 @@ A second package beside the JAX one, for one NVIDIA H100 (Hopper, sm_90a).
 It encodes and decodes reference-profile streams (signed Exp-Golomb inside
 zlib) and turbo-profile containers (codec/turbo.py: nibble plane, dense DC
 and exceptions, compressed per GOP) byte-compatible with ``dct3d_tpu``:
-the transform is torch.matmul in full float32, and the device kernels of
-both paths are hand-written CUDA (csrc/, built with nvcc on first use, see
-kernels.py):
+the transform is torch.matmul in full float32 (or in bfloat16, the fast
+profile of ``CodecConfig(compute_dtype="bfloat16")``), and the device
+kernels of both paths are hand-written CUDA (csrc/, built with nvcc on
+first use, see kernels.py; K1 and K4 have a bfloat16 form each):
 
   K1 frames -> cubes         ops/relayout.py    csrc/relayout.cu   both
   K2 group bit pack          ops/group_pack.py  csrc/group_pack.cu reference

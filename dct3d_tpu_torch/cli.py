@@ -19,9 +19,10 @@ container (a rerun resumes; decode then reads the geometry from its
 device without changing a byte.  ``--mesh GxT`` runs encode and decode on
 a (gop, tile) mesh of G*T CUDA devices (with ``--device cpu``, of G*T
 CPU shards) and writes the single-device bytes (parallel/sharding.py).
-``--dtype bfloat16`` exits 2 and names its ROADMAP item (``_UNPORTED``);
-``--pack-bits`` and ``--gops-per-batch`` size the TPU's buffers and
-batches, never the bytes, and are accepted and ignored.  Without a card,
+``--dtype bfloat16`` runs the lossy fast profile (bfloat16 matmuls on the
+tensor cores; ``--parity`` refuses it).  ``--pack-bits`` and
+``--gops-per-batch`` size the TPU's buffers and batches, never the bytes,
+and are accepted and ignored.  Without a card,
 encode, decode and sweep exit 2 unless ``--device cpu`` is given.
 """
 
@@ -44,25 +45,9 @@ from .config import CodecConfig
 #: device step (a batched quantize could round a 4x4x4 tie otherwise).
 _BATCH_GOPS = 4
 
-#: flags of items not ported yet: (attribute, is it set?, flag, ROADMAP
-#: Queue 1 item)
-_UNPORTED = (
-    ("dtype", lambda d: _norm_dtype(d) != "float32", "--dtype bfloat16", 8),
-)
-
 
 def _norm_dtype(d: str) -> str:
     return {"bf16": "bfloat16", "f32": "float32"}.get(d, d)
-
-
-def _unported(args) -> bool:
-    """Print why and return True when a flag of an unported item is set."""
-    for attr, is_set, flag, item in _UNPORTED:
-        if hasattr(args, attr) and is_set(getattr(args, attr)):
-            print(f"{flag} is not ported to dct3d_tpu_torch yet "
-                  f"(ROADMAP Queue 1, item {item})", file=sys.stderr)
-            return True
-    return False
 
 
 def _device(args):
@@ -104,6 +89,7 @@ def _cfg_from_args(args) -> CodecConfig:
         transport_delta=getattr(args, "transport_delta", False),
         zlib_level=level,
         deflate_workers=0 if getattr(args, "parity", False) else args.deflate_workers,
+        compute_dtype=_norm_dtype(getattr(args, "dtype", "float32")),
         pack_bits_per_value=getattr(args, "pack_bits", None) or 4,
     )
 
@@ -162,8 +148,10 @@ def _add_codec_args(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--dtype", default="float32",
         choices=("float32", "bfloat16", "f32", "bf16"),
-        help="transform matmul dtype: float32 only (bfloat16 is not ported "
-        "yet)",
+        help="transform matmul dtype: float32 (default) is byte-exact "
+        "reference parity; bfloat16 is the fast profile — the stream stays "
+        "reference-decodable within 0.7 dB (tests/test_pipeline.py pins "
+        "the floor; RD/speed table in PERFORMANCE.md)",
     )
     p.add_argument(
         "--stats", action="store_true",
@@ -340,9 +328,11 @@ def cmd_encode(args) -> int:
     from .io import rawvideo
     from .profiling import profile_to
 
-    if _unported(args):
-        return 2
     cfg = _cfg_from_args(args)
+    if args.parity and cfg.compute_dtype != "float32":
+        print("--parity (byte-exact reference layout) cannot combine with "
+              "the lossy --dtype bfloat16 fast profile", file=sys.stderr)
+        return 2
     if args.output == "-" and (args.index or args.checkpoint_every):
         print("stdout output cannot combine with --index (needs a seekable "
               "file) or --checkpoint-every (needs fsync/resume)",
@@ -720,8 +710,6 @@ def _read_meta(args, cfg, width, height):
 def cmd_decode(args) -> int:
     from .profiling import profile_to
 
-    if _unported(args):
-        return 2
     cfg, width, height = _read_meta(args, _cfg_from_args(args), args.width,
                                     args.height)
     if width is None or height is None:
@@ -1107,8 +1095,6 @@ def cmd_sweep(args) -> int:
     from .codec.transform import TransformContext
     from .io import rawvideo
 
-    if _unported(args):
-        return 2
     dev = _device(args)
     if dev is None:
         return 2
@@ -1134,6 +1120,7 @@ def cmd_sweep(args) -> int:
                 quant_strength=q, quant_bias=args.quant_bias,
                 zlib_level=args.zlib_level,
                 deflate_workers=args.deflate_workers,
+                compute_dtype=_norm_dtype(args.dtype),
             )
             tt = t - t % cfg.gop_size
             if tt == 0:
@@ -1150,6 +1137,8 @@ def cmd_sweep(args) -> int:
             row = {
                 "block": block,
                 "quant": q,
+                **({"dtype": cfg.compute_dtype}
+                   if cfg.compute_dtype != "float32" else {}),
                 "bpp": round(metrics.bits_per_pixel(len(data), w, h, tt), 4),
                 "psnr_db": round(metrics.psnr(video[:tt], out), 3),
                 "encode_fps": round(tt / enc_s, 2),
@@ -1267,7 +1256,7 @@ def build_parser() -> argparse.ArgumentParser:
     pw.add_argument(
         "--dtype", default="float32",
         choices=("float32", "bfloat16", "f32", "bf16"),
-        help="transform dtype: float32 only (bfloat16 is not ported yet)",
+        help="transform dtype for the RD rows (bfloat16 = fast profile)",
     )
     pw.add_argument("--output", default=None, help="write JSON table here")
     pw.add_argument(

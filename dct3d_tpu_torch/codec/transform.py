@@ -1,26 +1,33 @@
 """Device pipeline: frames <-> quantized zigzag coefficients <-> bits.
 
 The port's counterpart of ``dct3d_tpu.codec.transform`` (reference profile,
-float32, any cube geometry):
+any cube geometry, in the cfg's ``compute_dtype``: float32 or bfloat16):
 
   encode step:  (T, H, W) uint8 (transport_delta: wrapping temporal
                 deltas, rebuilt GOP by GOP with a mod-256 prefix sum)
-                -> f32 cubes + exact int32 cube sums (K1 for 8x8x8 cubes,
-                   ops/relayout.py; codec/framing.py otherwise)
-                -> (num_cubes, cube) @ (cube, cube) f32 matmul
+                -> cubes in the compute dtype + exact int32 cube sums (K1,
+                   or its bf16 form, for 8x8x8 cubes, ops/relayout.py;
+                   codec/framing.py otherwise)
+                -> (num_cubes, cube) @ (cube, cube) matmul in that dtype
                    [3D DCT + quantization + zigzag folded into the matrix]
-                -> round half away from zero, exact DC (ops/quant.py)
+                -> round half away from zero, in that dtype; exact DC
+                   (ops/quant.py)
                 -> Exp-Golomb bit pack (ops/bitpack.py): K2 + K3 for whole
                    256-value groups, K5 + K3 otherwise
                 -> next GOP's carry, on the device
-  decode step:  nibble plane + exceptions + DC -> two f32 matmuls
-                -> clamp, truncating cast, cubes -> frames (K4 for 8x8x8
-                   cubes, framing otherwise) (transport_delta: wrapping
-                   temporal deltas, GOP by GOP, for the host to undo)
+  decode step:  nibble plane + exceptions + DC -> two matmuls in the
+                compute dtype, summed in it
+                -> clamp, truncating cast, cubes -> frames (K4, or its bf16
+                   form, for 8x8x8 cubes; framing otherwise)
+                   (transport_delta: wrapping temporal deltas, GOP by GOP,
+                   for the host to undo)
 
 The large matmuls stay ``torch.matmul``, as the JAX package leaves them to
-XLA; full float32 (no TF32) keeps quantized-integer parity with the
-float64 oracle.
+XLA.  float32 runs in full float32 (no TF32), which keeps quantized-integer
+parity with the float64 oracle.  bfloat16 is the lossy fast profile: as in
+the JAX package, each product returns bfloat16 and the round and the
+decode's sum run in bfloat16; the products accumulate in float32 (cuBLAS's
+reduced-precision split-K reduction is turned off).
 """
 
 from __future__ import annotations
@@ -34,77 +41,101 @@ from ..config import CodecConfig
 from ..ops import bitpack, dct, expgolomb, group_pack, quant, relayout
 from . import framing
 
-
-def _full_f32() -> None:
-    """Turn TF32 off for matmuls and convolutions (process-wide)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+#: cfg.compute_dtype -> the torch dtype of the matrices and the matmuls
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _assert_full_f32() -> None:
-    if (torch.backends.cuda.matmul.allow_tf32
-            or torch.get_float32_matmul_precision() != "highest"):
+def compute_dtype(cfg: CodecConfig) -> torch.dtype:
+    """The torch dtype of cfg.compute_dtype; raises on any other name."""
+    try:
+        return DTYPES[cfg.compute_dtype]
+    except KeyError:
+        raise ValueError(f"compute_dtype must be one of {sorted(DTYPES)}, "
+                         f"got {cfg.compute_dtype!r}") from None
+
+
+def _set_precision(dtype: torch.dtype) -> None:
+    """Process-wide matmul settings the dtype's parity needs: float32 turns
+    TF32 off for matmuls and convolutions; bfloat16 turns off cuBLAS's
+    bfloat16 reduction of split-K partial sums (XLA accumulates in
+    float32)."""
+    if dtype == torch.float32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+    else:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def _assert_precision(dtype: torch.dtype) -> None:
+    if dtype == torch.float32:
+        if (torch.backends.cuda.matmul.allow_tf32
+                or torch.get_float32_matmul_precision() != "highest"):
+            raise RuntimeError(
+                "float32 matmul precision was lowered after the "
+                "TransformContext was built; quantized-integer parity needs "
+                "full float32"
+            )
+    elif torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
         raise RuntimeError(
-            "float32 matmul precision was lowered after the TransformContext "
-            "was built; quantized-integer parity needs full float32"
-        )
-
-
-def _check_supported(cfg: CodecConfig) -> None:
-    """Raise NotImplementedError for configurations the port lacks yet
-    (each names its ROADMAP Queue 1 item)."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "only compute_dtype='float32' (ROADMAP Queue 1: bf16 profile)"
+            "bfloat16 reduced-precision reduction was turned on after the "
+            "TransformContext was built; the bfloat16 profile accumulates "
+            "in float32"
         )
 
 
 _MATRICES = ("enc_t", "enc_t_pair", "dec_me", "dec_mo")
 
 
-def host_matrices(cfg: CodecConfig) -> dict[str, np.ndarray]:
-    """The float32 encode matrix, its pair-permuted twin (turbo profile),
-    and the even/odd coefficient-row halves of the decode matrix, built in
-    float64 on the host (ops/dct.py)."""
-    dec = dct.decode_matrix(cfg, np.float32)
-    return {
-        "enc_t": dct.encode_matrix(cfg, np.float32),
-        "enc_t_pair": dct.encode_matrix_pair(cfg, np.float32),
-        "dec_me": np.ascontiguousarray(dec[0::2]),
-        "dec_mo": np.ascontiguousarray(dec[1::2]),
+def host_matrices(cfg: CodecConfig) -> dict[str, torch.Tensor]:
+    """The encode matrix, its pair-permuted twin (turbo profile), and the
+    even/odd coefficient-row halves of the decode matrix: built in float64
+    on the host (ops/dct.py), then cast once to cfg.compute_dtype (CPU
+    tensors).  torch's float64 -> bfloat16 cast rounds as ml_dtypes', which
+    the JAX package uses."""
+    dtype = compute_dtype(cfg)
+    dec = dct.decode_matrix(cfg, np.float64)
+    arrays = {
+        "enc_t": dct.encode_matrix(cfg, np.float64),
+        "enc_t_pair": dct.encode_matrix_pair(cfg, np.float64),
+        "dec_me": dec[0::2],
+        "dec_mo": dec[1::2],
     }
+    return {k: torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+            for k, a in arrays.items()}
 
 
 class TransformContext:
-    """The constant encode/decode matrices, as float32 tensors on ``device``.
+    """The constant encode/decode matrices, as tensors of the cfg's
+    compute dtype on ``device``.
 
     ``device`` is required: "cuda" runs the kernels (and raises without a
-    card), "cpu" runs their plain versions.  Building a context turns TF32
-    off process-wide.
+    card), "cpu" runs their plain versions.  Building a context sets the
+    dtype's matmul precision process-wide (_set_precision).
     """
 
     def __init__(self, cfg: CodecConfig | None, device,
-                 arrays: dict[str, np.ndarray] | None = None) -> None:
+                 arrays: dict[str, torch.Tensor] | None = None) -> None:
         self.cfg = cfg or CodecConfig()
-        _check_supported(self.cfg)
         if device is None:
             raise ValueError("TransformContext needs an explicit device")
         self.device = torch.device(device)
-        _full_f32()
+        self.dtype = compute_dtype(self.cfg)
+        _set_precision(self.dtype)
         arrays = host_matrices(self.cfg) if arrays is None else arrays
         self.enc_t, self.enc_t_pair, self.dec_me, self.dec_mo = (
-            torch.tensor(np.asarray(arrays[k], np.float32), device=self.device)
-            for k in _MATRICES
+            arrays[k].to(self.device, self.dtype) for k in _MATRICES
         )
 
     @classmethod
     def from_numpy(cls, arrays: dict[str, np.ndarray], cfg: CodecConfig | None,
                    device) -> "TransformContext":
         """A context from {"enc_t", "enc_t_pair", "dec_me", "dec_mo"}
-        arrays, e.g. ``np.asarray`` of a JAX TransformContext's
-        attributes."""
-        return cls(cfg, device, arrays)
+        arrays, e.g. ``np.asarray`` of a JAX TransformContext's attributes.
+        Each passes through float32, which holds a bfloat16 value
+        exactly."""
+        return cls(cfg, device, {k: torch.tensor(np.asarray(arrays[k], np.float32))
+                                 for k in _MATRICES})
 
 
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -122,14 +153,17 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def _cubes_and_sums(frames: torch.Tensor,
                     cfg: CodecConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """(T, H, W) uint8 -> ((num_cubes, cube) f32 pixels, (num_cubes,) exact
-    int32 pixel sums): K1 where it covers the geometry, else framing's
-    transpose (the route is chosen by geometry, as in the JAX package)."""
+    """(T, H, W) uint8 -> ((num_cubes, cube) pixels in the compute dtype
+    (exact: bfloat16 holds every integer up to 256), (num_cubes,) exact
+    int32 pixel sums): K1 or its bf16 form where it covers the geometry,
+    else framing's transpose (the route is chosen by geometry, as in the
+    JAX package)."""
     t, h, w = frames.shape
+    dtype = compute_dtype(cfg)
     if relayout.supports(cfg, h, w):
-        return relayout.frames_to_cubes(frames)
+        return relayout.frames_to_cubes(frames, dtype)
     cubes = framing.frames_to_cubes(frames, cfg)
-    return cubes.float(), cubes.sum(1, dtype=torch.int32)
+    return cubes.to(dtype), cubes.sum(1, dtype=torch.int32)
 
 
 def _by_gop(frames: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
@@ -159,11 +193,12 @@ def _frames_to_q(frames: torch.Tensor, enc_t: torch.Tensor,
 
 def _finish_frames(pixels: torch.Tensor, cfg: CodecConfig, height: int,
                    width: int) -> torch.Tensor:
-    """(num_cubes, cube) f32 pixels -> clamp to [0, 255] (3dDCT.cl:256-262),
-    truncating uint8 cast (decoder.c:30), (T, H, W) frames: K4 where it
-    covers the geometry, else framing's transpose.  With transport_delta
-    the frames leave as wrapping temporal deltas, GOP by GOP (the host
-    undoes them with decoder._undelta)."""
+    """(num_cubes, cube) pixels in the compute dtype -> clamp to [0, 255]
+    (3dDCT.cl:256-262), truncating uint8 cast (decoder.c:30), (T, H, W)
+    frames: K4 or its bf16 form where it covers the geometry, else
+    framing's transpose.  With transport_delta the frames leave as
+    wrapping temporal deltas, GOP by GOP (the host undoes them with
+    decoder._undelta)."""
     if relayout.supports(cfg, height, width):
         frames = relayout.cubes_to_frames(pixels, height, width)
     else:
@@ -177,13 +212,16 @@ def _finish_frames(pixels: torch.Tensor, cfg: CodecConfig, height: int,
 
 def _quantize(cubes: torch.Tensor, sums: torch.Tensor, enc_t: torch.Tensor,
               cfg: CodecConfig) -> torch.Tensor:
-    """(num_cubes, cube) f32 pixel cubes -> int32 quantized zigzag
-    coefficients.  DC (column 0, divisor 1) is the one coefficient where a
+    """(num_cubes, cube) pixel cubes -> int32 quantized zigzag
+    coefficients.  The product and the round run in the matrix's dtype, as
+    in the JAX package: in bfloat16 the product returns bfloat16 and the
+    bias add rounds to bfloat16 too (an f32 round after an upcast gives
+    other ints).  DC (column 0, divisor 1) is the one coefficient where a
     1-ulp f32 wobble can cross the rounding boundary against the float64
     oracle, so it is replaced by the exact fixed-point quantizer of the
     integer cube sums (ops/quant.exact_dc_quant), for cubes of at most 4096
     pixels (sums < 2^20), the JAX package's gate."""
-    _assert_full_f32()
+    _assert_precision(enc_t.dtype)
     scaled = cubes @ enc_t
     # q = sign(x)*floor(|x| + bias): round half away from zero at bias 0.5
     # (C roundf, encoder.c:53), a deadzone quantizer below it.
@@ -248,9 +286,12 @@ def _dequant_matmul(ce: torch.Tensor, co: torch.Tensor, dec_me: torch.Tensor,
                     dec_mo: torch.Tensor) -> torch.Tensor:
     """Inverse transform as even-coefficient + odd-coefficient half matmuls,
     summed in that order like the JAX package's every decode path (so the
-    pixels stay within its <= 1 LSB envelope)."""
-    _assert_full_f32()
-    return ce.to(torch.float32) @ dec_me + co.to(torch.float32) @ dec_mo
+    pixels stay within its <= 1 LSB envelope).  The ints are cast to the
+    matrices' dtype first; each product returns that dtype and the sum is
+    taken in it (in bfloat16 both round: not one product over the whole
+    cube, nor a float32 sum)."""
+    _assert_precision(dec_me.dtype)
+    return ce.to(dec_me.dtype) @ dec_me + co.to(dec_mo.dtype) @ dec_mo
 
 
 def planar4_to_frames(plane: torch.Tensor, exc_idx: torch.Tensor,

@@ -5,10 +5,10 @@ grayscale video.  The wire carries the codec's device transport format —
 a packed-nibble plane of quantized zigzag coefficients, a dense DC stream
 and a sparse exception list — compressed per GOP:
 
-  encode step:  K1 (8x8x8 cubes; framing otherwise) -> f32 matmul with the
-                pair-permuted encode matrix -> exact-DC quantize -> nibble
-                pack -> K7 (plane -> wire) -> K6 (exception tables), all on
-                the device;
+  encode step:  K1 (8x8x8 cubes; framing otherwise) -> matmul in the
+                compute dtype with the pair-permuted encode matrix ->
+                exact-DC quantize -> nibble pack -> K7 (plane -> wire) ->
+                K6 (exception tables), all on the device;
   host drain:   tables -> sorted exception list -> four compressed streams
                 -> one D3MH member (type 5) per GOP;
   decode:       host decompression (GOP-parallel) -> K8 (wire -> plane)

@@ -8,12 +8,20 @@
 // byte order; here every thread computes its own offsets, so both kernels
 // produce the natural order of codec/framing.py directly.
 //
-// Bound: bytes.  A 1080p GOP is 16.6 MB of u8 frames and 66 MB of f32
-// cubes.  Design: one block per (GOP, block row, run of kChunk block
-// columns) stages the 8 frames x 8 rows x (8*kChunk) bytes in shared memory
-// with 8-byte loads along the rows (neighbouring threads on neighbouring
-// addresses), then walks the cubes with 16-byte float4 accesses, so both
-// the frame side and the cube side are coalesced.
+// Each is one template with two forms: float32 cubes (the reference
+// profile) and bfloat16 cubes (the bf16 profile, compute_dtype="bfloat16",
+// which the JAX package runs through the same TPU kernels and a cast).
+// Every uint8 pixel is exact in bfloat16 (8 significant bits), and every
+// bfloat16 value is exact in float32, so the forms cast, clamp and
+// truncate exactly as the plain versions do.
+//
+// Bound: bytes.  A 1080p GOP is 16.6 MB of u8 frames and 66.4 MB of f32
+// cubes (33.2 MB in bf16).  Design: one block per (GOP, block row, run of
+// kChunk block columns) stages the 8 frames x 8 rows x (8*kChunk) bytes in
+// shared memory with 8-byte loads along the rows (neighbouring threads on
+// neighbouring addresses), then walks the cubes with 16-byte accesses (4
+// f32 pixels, or 8 bf16 pixels: one cube row), so both the frame side and
+// the cube side are coalesced.
 
 #include "common.cuh"
 
@@ -37,6 +45,24 @@ __device__ __forceinline__ uint32_t clamp_trunc_u8(float x) {
   return (uint32_t)__float2int_rz(fminf(fmaxf(x, 0.0f), 255.0f));
 }
 
+// bfloat16 bits of an integer 0..255: the upper half of its float32 bits
+// (exact, the lower half is zero).
+__device__ __forceinline__ uint32_t bf16_bits(uint32_t b) {
+  return __float_as_uint((float)b) >> 16;
+}
+
+// Two bfloat16 pixels (low half first) -> two clamped, truncated bytes.
+__device__ __forceinline__ uint32_t bf16x2_to_u8x2(uint32_t v) {
+  return clamp_trunc_u8(__uint_as_float(v << 16)) |
+         (clamp_trunc_u8(__uint_as_float(v & 0xffff0000u)) << 8);
+}
+
+// Pixels of type T in one 16-byte access, and such accesses per cube.
+template <typename T>
+constexpr int kPix = 16 / (int)sizeof(T);
+template <typename T>
+constexpr int kUnits = kCube / kPix<T>;
+
 struct Place {
   int64_t frame0;  // first frame of the GOP
   int by;          // block row
@@ -59,9 +85,11 @@ __device__ __forceinline__ Place place(int nbh, int nbw, int nchunks) {
   return p;
 }
 
+// T: float (cube elements float32) or uint16_t (bfloat16 bits).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 frames_to_cubes_kernel(const uint8_t* __restrict__ frames,
-                       float* __restrict__ cubes, int32_t* __restrict__ sums,
+                       T* __restrict__ cubes, int32_t* __restrict__ sums,
                        int height, int width, int nbh, int nbw, int nchunks) {
   __shared__ Tile tile;
   const Place p = place(nbh, nbw, nchunks);
@@ -74,15 +102,27 @@ frames_to_cubes_kernel(const uint8_t* __restrict__ frames,
     }
   }
   __syncthreads();
-  // float4 q of a cube holds elements 4q..4q+3 = frame q/16, row (q/2)%8,
-  // columns 4*(q%2)..+3 (intra-cube layout [frame][row][col]).
-  for (int e = threadIdx.x; e < (kCube / 4) * p.ncols; e += kThreads) {
-    const int c = e / (kCube / 4), q = e % (kCube / 4);
-    const uint2 r = tile.row[q >> 4][(q >> 1) & 7][c];
-    const uint32_t w = (q & 1) ? r.y : r.x;
-    reinterpret_cast<float4*>(cubes + (p.cube0 + c) * kCube)[q] = make_float4(
-        (float)(w & 255), (float)((w >> 8) & 255), (float)((w >> 16) & 255),
-        (float)(w >> 24));
+  // Access u of a cube holds elements kPix*u.. = cube row r = kPix*u/8
+  // (frame r/8, row r%8; intra-cube layout [frame][row][col]): in f32 half
+  // of it (word u%2), in bf16 all of it.
+  for (int e = threadIdx.x; e < kUnits<T> * p.ncols; e += kThreads) {
+    const int c = e / kUnits<T>, u = e % kUnits<T>;
+    const int r = u * kPix<T> / kEdge;
+    const uint2 row = tile.row[r >> 3][r & 7][c];
+    uint4 v;
+    if constexpr (kPix<T> == 4) {
+      const uint32_t w = (u & 1) ? row.y : row.x;
+      v = make_uint4(__float_as_uint((float)(w & 255)),
+                     __float_as_uint((float)((w >> 8) & 255)),
+                     __float_as_uint((float)((w >> 16) & 255)),
+                     __float_as_uint((float)(w >> 24)));
+    } else {
+      v = make_uint4(bf16_bits(row.x & 255) | (bf16_bits((row.x >> 8) & 255) << 16),
+                     bf16_bits((row.x >> 16) & 255) | (bf16_bits(row.x >> 24) << 16),
+                     bf16_bits(row.y & 255) | (bf16_bits((row.y >> 8) & 255) << 16),
+                     bf16_bits((row.y >> 16) & 255) | (bf16_bits(row.y >> 24) << 16));
+    }
+    reinterpret_cast<uint4*>(cubes + (p.cube0 + c) * kCube)[u] = v;
   }
   // Exact integer pixel sum of each cube (exact_dc_quant's input): one warp
   // per cube, 64 rows of 8 bytes over 32 lanes.
@@ -98,20 +138,29 @@ frames_to_cubes_kernel(const uint8_t* __restrict__ frames,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-cubes_to_frames_kernel(const float* __restrict__ pixels,
+cubes_to_frames_kernel(const T* __restrict__ pixels,
                        uint8_t* __restrict__ frames, int height, int width,
                        int nbh, int nbw, int nchunks) {
   __shared__ Tile tile;
   const Place p = place(nbh, nbw, nchunks);
-  for (int e = threadIdx.x; e < (kCube / 4) * p.ncols; e += kThreads) {
-    const int c = e / (kCube / 4), q = e % (kCube / 4);
-    const float4 f =
-        reinterpret_cast<const float4*>(pixels + (p.cube0 + c) * kCube)[q];
-    const uint32_t w = clamp_trunc_u8(f.x) | (clamp_trunc_u8(f.y) << 8) |
-                       (clamp_trunc_u8(f.z) << 16) | (clamp_trunc_u8(f.w) << 24);
-    uint2& r = tile.row[q >> 4][(q >> 1) & 7][c];
-    if (q & 1) r.y = w; else r.x = w;
+  for (int e = threadIdx.x; e < kUnits<T> * p.ncols; e += kThreads) {
+    const int c = e / kUnits<T>, u = e % kUnits<T>;
+    const int r = u * kPix<T> / kEdge;
+    const uint4 v =
+        reinterpret_cast<const uint4*>(pixels + (p.cube0 + c) * kCube)[u];
+    uint2& row = tile.row[r >> 3][r & 7][c];
+    if constexpr (kPix<T> == 4) {
+      const uint32_t w = clamp_trunc_u8(__uint_as_float(v.x)) |
+                         (clamp_trunc_u8(__uint_as_float(v.y)) << 8) |
+                         (clamp_trunc_u8(__uint_as_float(v.z)) << 16) |
+                         (clamp_trunc_u8(__uint_as_float(v.w)) << 24);
+      if (u & 1) row.y = w; else row.x = w;
+    } else {
+      row = make_uint2(bf16x2_to_u8x2(v.x) | (bf16x2_to_u8x2(v.y) << 16),
+                       bf16x2_to_u8x2(v.z) | (bf16x2_to_u8x2(v.w) << 16));
+    }
   }
   __syncthreads();
   for (int e = threadIdx.x; e < kEdge * kEdge * kChunk; e += kThreads) {
@@ -129,36 +178,64 @@ int64_t grid_for(int gops, int height, int width, int* nchunks) {
   return (int64_t)gops * (height / kEdge) * *nchunks;
 }
 
-}  // namespace
-}  // namespace dct3d
-
-// frames: (gops*8, height, width) u8, 8-byte aligned; cubes: (n, 512) f32;
-// sums: (n,) i32, n = gops * height/8 * width/8.  height, width % 8 == 0.
-DCT3D_EXPORT int dct3d_frames_to_cubes(const void* frames, void* cubes,
-                                       void* sums, int gops, int height,
-                                       int width, void* stream) {
-  using namespace dct3d;
+template <typename T>
+int launch_frames_to_cubes(const void* frames, void* cubes, void* sums,
+                           int gops, int height, int width, void* stream) {
   int nchunks;
   const int64_t blocks = grid_for(gops, height, width, &nchunks);
-  frames_to_cubes_kernel<<<(unsigned)blocks, kThreads, 0,
-                           (cudaStream_t)stream>>>(
-      (const uint8_t*)frames, (float*)cubes, (int32_t*)sums, height, width,
+  frames_to_cubes_kernel<T><<<(unsigned)blocks, kThreads, 0,
+                              (cudaStream_t)stream>>>(
+      (const uint8_t*)frames, (T*)cubes, (int32_t*)sums, height, width,
       height / kEdge, width / kEdge, nchunks);
   return (int)cudaGetLastError();
 }
 
-// pixels: (n, 512) f32 natural cube order; frames: (gops*8, height, width) u8.
+template <typename T>
+int launch_cubes_to_frames(const void* pixels, void* frames, int gops,
+                           int height, int width, void* stream) {
+  int nchunks;
+  const int64_t blocks = grid_for(gops, height, width, &nchunks);
+  cubes_to_frames_kernel<T><<<(unsigned)blocks, kThreads, 0,
+                              (cudaStream_t)stream>>>(
+      (const T*)pixels, (uint8_t*)frames, height, width, height / kEdge,
+      width / kEdge, nchunks);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace dct3d
+
+// frames: (gops*8, height, width) u8, 8-byte aligned; cubes: (n, 512) f32
+// (bf16: _bf16 form), 16-byte aligned; sums: (n,) i32, n = gops * height/8
+// * width/8.  height, width % 8 == 0.
+DCT3D_EXPORT int dct3d_frames_to_cubes(const void* frames, void* cubes,
+                                       void* sums, int gops, int height,
+                                       int width, void* stream) {
+  return dct3d::launch_frames_to_cubes<float>(frames, cubes, sums, gops,
+                                              height, width, stream);
+}
+
+DCT3D_EXPORT int dct3d_frames_to_cubes_bf16(const void* frames, void* cubes,
+                                            void* sums, int gops, int height,
+                                            int width, void* stream) {
+  return dct3d::launch_frames_to_cubes<uint16_t>(frames, cubes, sums, gops,
+                                                 height, width, stream);
+}
+
+// pixels: (n, 512) f32 (bf16: _bf16 form) natural cube order, 16-byte
+// aligned; frames: (gops*8, height, width) u8.
 DCT3D_EXPORT int dct3d_cubes_to_frames(const void* pixels, void* frames,
                                        int gops, int height, int width,
                                        void* stream) {
-  using namespace dct3d;
-  int nchunks;
-  const int64_t blocks = grid_for(gops, height, width, &nchunks);
-  cubes_to_frames_kernel<<<(unsigned)blocks, kThreads, 0,
-                           (cudaStream_t)stream>>>(
-      (const float*)pixels, (uint8_t*)frames, height, width, height / kEdge,
-      width / kEdge, nchunks);
-  return (int)cudaGetLastError();
+  return dct3d::launch_cubes_to_frames<float>(pixels, frames, gops, height,
+                                              width, stream);
+}
+
+DCT3D_EXPORT int dct3d_cubes_to_frames_bf16(const void* pixels, void* frames,
+                                            int gops, int height, int width,
+                                            void* stream) {
+  return dct3d::launch_cubes_to_frames<uint16_t>(pixels, frames, gops, height,
+                                                 width, stream);
 }
 
 DCT3D_EXPORT const char* dct3d_error_string(int err) {

@@ -52,7 +52,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # name: argtypes; every entry point returns cudaGetLastError() as int
     "dct3d_frames_to_cubes": [_P, _P, _P, _I, _I, _I, _P],
+    "dct3d_frames_to_cubes_bf16": [_P, _P, _P, _I, _I, _I, _P],
     "dct3d_cubes_to_frames": [_P, _P, _I, _I, _I, _P],
+    "dct3d_cubes_to_frames_bf16": [_P, _P, _I, _I, _I, _P],
     "dct3d_group_bits": [_P, _P, _I, _P],
     "dct3d_group_pack_values": [_P, _P, _P, _I, _I, _P],
     "dct3d_group_pack_codes": [_P, _P, _P, _P, _I, _I, _P],

@@ -6,8 +6,10 @@ They replace ``dct3d_tpu.ops.relayout.frames_to_cubes_perm`` and
 ``cubes_perm_to_frames`` at their public boundary: the TPU kernels work in a
 sigma-permuted column order undone by one-hot matmuls, while these take and
 give the natural cube order of codec/framing.py.  K1 also emits each
-cube's exact integer pixel sum (the exact-DC quantizer's input) and the f32
-cast; K4 also does the decoder's clamp and truncating uint8 cast.
+cube's exact integer pixel sum (the exact-DC quantizer's input) and the
+cast to the compute dtype; K4 also does the decoder's clamp and truncating
+uint8 cast.  Each has a float32 and a bfloat16 form (the bf16 profile,
+``compute_dtype="bfloat16"``), launched under names of their own.
 
 K7 and K8 replace ``dct3d_tpu.ops.relayout.plane_to_wire`` and
 ``wire_words`` (``wire_to_plane``): the TPU kernels transpose int32 words
@@ -29,6 +31,14 @@ from ..codec import framing
 from ..config import CodecConfig
 
 _CUBE8 = CodecConfig()  # the 8x8x8 cube geometry the kernels implement
+#: pixel dtype -> suffix of the K1 / K4 form that takes or gives it
+_FORMS = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def _form(dtype: torch.dtype) -> str:
+    if dtype not in _FORMS:
+        raise ValueError(f"K1 and K4 have float32 and bfloat16 forms, not {dtype}")
+    return _FORMS[dtype]
 
 
 def supports(cfg: CodecConfig, height: int, width: int) -> bool:
@@ -44,10 +54,12 @@ def _geometry(t: int, h: int, w: int) -> int:
     return t // 8
 
 
-def frames_to_cubes_plain(frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def frames_to_cubes_plain(frames: torch.Tensor, dtype: torch.dtype = torch.float32
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K1 (same contract as frames_to_cubes)."""
+    _form(dtype)
     cubes = framing.frames_to_cubes(frames, _CUBE8)
-    return cubes.float(), cubes.sum(1, dtype=torch.int32)
+    return cubes.to(dtype), cubes.sum(1, dtype=torch.int32)
 
 
 def cubes_to_frames_plain(pixels: torch.Tensor, height: int,
@@ -58,32 +70,37 @@ def cubes_to_frames_plain(pixels: torch.Tensor, height: int,
     )
 
 
-def frames_to_cubes(frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1: (T, H, W) uint8 -> ((cubes, 512) float32 pixels, (cubes,) int32
-    pixel sums), cubes in bitstream order, natural intra-cube order."""
+def frames_to_cubes(frames: torch.Tensor, dtype: torch.dtype = torch.float32
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1: (T, H, W) uint8 -> ((cubes, 512) pixels of ``dtype``, float32 or
+    bfloat16 (exact either way), (cubes,) int32 pixel sums), cubes in
+    bitstream order, natural intra-cube order."""
     if frames.dtype != torch.uint8 or frames.dim() != 3:
         raise ValueError("frames_to_cubes takes a (T, H, W) uint8 tensor")
+    name = "frames_to_cubes" + _form(dtype)
     t, h, w = frames.shape
     gops = _geometry(t, h, w)
     if frames.device.type == "cpu":
-        return frames_to_cubes_plain(frames)
-    kernels.check_cuda("frames_to_cubes", frames)
+        return frames_to_cubes_plain(frames, dtype)
+    kernels.check_cuda(name, frames)
     if frames.data_ptr() % 8:
-        raise ValueError("frames_to_cubes needs 8-byte aligned frames")
+        raise ValueError(f"{name} needs 8-byte aligned frames")
     n = gops * (h // 8) * (w // 8)
-    cubes = torch.empty((n, 512), dtype=torch.float32, device=frames.device)
+    cubes = torch.empty((n, 512), dtype=dtype, device=frames.device)
     sums = torch.empty((n,), dtype=torch.int32, device=frames.device)
-    kernels.launch("frames_to_cubes", frames.device, frames, cubes, sums,
-                   gops, h, w)
+    kernels.launch(name, frames.device, frames, cubes, sums, gops, h, w)
     return cubes, sums
 
 
 def cubes_to_frames(pixels: torch.Tensor, height: int,
                     width: int) -> torch.Tensor:
-    """K4: (cubes, 512) float32 pixels in natural order -> clamp to
-    [0, 255] -> truncating uint8 cast -> (T, H, W) frames."""
-    if pixels.dtype != torch.float32 or pixels.dim() != 2 or pixels.shape[1] != 512:
-        raise ValueError("cubes_to_frames takes (cubes, 512) float32 pixels")
+    """K4: (cubes, 512) float32 or bfloat16 pixels in natural order ->
+    clamp to [0, 255] -> truncating uint8 cast -> (T, H, W) frames.  A
+    bfloat16 value converts to float32 exactly, so the bf16 form clamps
+    and truncates what the plain version does."""
+    if pixels.dim() != 2 or pixels.shape[1] != 512:
+        raise ValueError("cubes_to_frames takes (cubes, 512) pixels")
+    name = "cubes_to_frames" + _form(pixels.dtype)
     per_gop = (height // 8) * (width // 8)
     if not per_gop or pixels.shape[0] % per_gop:
         raise ValueError(f"{pixels.shape[0]} cubes do not tile {width}x{height} GOPs")
@@ -91,11 +108,11 @@ def cubes_to_frames(pixels: torch.Tensor, height: int,
     _geometry(8 * gops, height, width)
     if pixels.device.type == "cpu":
         return cubes_to_frames_plain(pixels, height, width)
-    kernels.check_cuda("cubes_to_frames", pixels)
+    kernels.check_cuda(name, pixels)
+    kernels.check_aligned16(name, pixels)
     frames = torch.empty((8 * gops, height, width), dtype=torch.uint8,
                          device=pixels.device)
-    kernels.launch("cubes_to_frames", pixels.device, pixels, frames, gops,
-                   height, width)
+    kernels.launch(name, pixels.device, pixels, frames, gops, height, width)
     return frames
 
 

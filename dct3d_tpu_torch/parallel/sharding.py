@@ -49,8 +49,8 @@ _WINDOW = 3  # decode: mesh steps in flight on the devices
 def mesh_contexts(mesh: Mesh, cfg: CodecConfig,
                   ctx: TransformContext | None = None) -> dict:
     """One TransformContext per distinct device of ``mesh``, all built from
-    one set of host matrices (TransformContext.from_numpy).  ``ctx`` serves
-    its own device when it holds the same cfg."""
+    one set of host matrices in cfg's compute dtype (host_matrices).
+    ``ctx`` serves its own device when it holds the same cfg."""
     out: dict = {}
     arrays = None
     for dev in mesh.distinct_devices:
@@ -60,7 +60,7 @@ def mesh_contexts(mesh: Mesh, cfg: CodecConfig,
             continue
         if arrays is None:
             arrays = host_matrices(cfg)
-        out[dev] = TransformContext.from_numpy(arrays, cfg, dev)
+        out[dev] = TransformContext(cfg, dev, arrays)
     return out
 
 

@@ -342,28 +342,42 @@ def test_png_and_y4m_input_and_y4m_output(tmp_path):
     (["--transport-delta"], 7), (["--dtype", "bfloat16"], 8), (["--dtype", "bf16"], 8),
 ])
 def test_unported_flags_exit_2(work, tmp_path, capsys, argv, item):
-    """The flags of items still to port exit 2 and name their item; those
-    of items 7, 11 and 12, ported since, encode the JAX CLI's file and
-    decode it with the same flags, naming no item."""
+    """The flags of ROADMAP Queue 1 items 7, 8, 11 and 12, all ported
+    now, encode the JAX CLI's file and decode it with the same flags,
+    naming no item.  --dtype bfloat16 (item 8) also decodes to the JAX
+    CLI's pixels byte for byte; with --parity both CLIs exit 2 with the
+    same message; its sweep rows carry the JAX CLI's "dtype" tag, bpp and
+    PSNR (tests/test_cli_io.py:354-381)."""
     _, src, _ = work
-    if item in (7, 11, 12):
-        files = []
-        for main, extra, tag in ((jcli.main, [], "j"), (cli.main, CPU, "p")):
-            out = str(tmp_path / f"o.{tag}")
-            assert main(["encode", src, out, str(W), str(H), *argv, *extra]) == 0
-            files.append(open(out, "rb").read())
-        assert files[0] == files[1]
-        dec = str(tmp_path / "d.raw")
-        assert cli.main(["decode", out, dec, str(W), str(H), *argv, *CPU]) == 0
-        assert os.path.getsize(dec) == os.path.getsize(src) - os.path.getsize(src) % (
-            8 * W * H * (3 if argv == ["--rgb"] else 1))
-        assert "item" not in capsys.readouterr().err
+    files = []
+    for main, extra, tag in ((jcli.main, [], "j"), (cli.main, CPU, "p")):
+        out = str(tmp_path / f"o.{tag}")
+        assert main(["encode", src, out, str(W), str(H), *argv, *extra]) == 0
+        files.append(open(out, "rb").read())
+    assert files[0] == files[1]
+    dec = str(tmp_path / "d.raw")
+    assert cli.main(["decode", out, dec, str(W), str(H), *argv, *CPU]) == 0
+    assert os.path.getsize(dec) == os.path.getsize(src) - os.path.getsize(src) % (
+        8 * W * H * (3 if argv == ["--rgb"] else 1))
+    assert "item" not in capsys.readouterr().err
+    if argv[0] != "--dtype":
         return
-    for cmd in ("encode", "decode"):
-        assert cli.main([cmd, src, str(tmp_path / "o"), str(W), str(H), *argv, *CPU]) == 2
-        assert f"item {item}" in capsys.readouterr().err
-    if argv[0] == "--dtype":
-        assert cli.main(["sweep", "synthetic", "16", "16", "8", *argv, *CPU]) == 2
+    jdec = str(tmp_path / "j.raw")
+    assert jcli.main(["decode", out, jdec, str(W), str(H), *argv]) == 0
+    assert open(dec, "rb").read() == open(jdec, "rb").read()
+    errs, rows = [], []
+    for main, extra in ((jcli.main, []), (cli.main, CPU)):
+        capsys.readouterr()
+        assert main(["encode", src, str(tmp_path / "x"), str(W), str(H), *argv,
+                     "--parity", *extra]) == 2
+        errs.append(capsys.readouterr().err)
+        assert main(["sweep", "synthetic", "16", "16", "8", "--quants", "5", "--blocks", "8",
+                     *argv, *extra]) == 0
+        rows.append(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
+    assert "--parity" in errs[0] and errs[0] == errs[1]
+    for k in ("dtype", "bpp", "psnr_db"):
+        assert rows[0][k] == rows[1][k], k
+    assert rows[1]["dtype"] == "bfloat16"
 
 
 @pytest.mark.parametrize("turbo", [False, True], ids=["reference", "turbo"])

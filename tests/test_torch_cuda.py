@@ -56,6 +56,56 @@ def test_relayout_kernels_equal_plain(dev, shape):
     assert torch.equal(got.cpu(), relayout.cubes_to_frames_plain(pixels, h, w))
 
 
+@pytest.mark.parametrize("shape", [(8, 8, 8), (16, 24, 72), (8, 40, 264), (8, 136, 200)])
+def test_relayout_bf16_kernels_equal_plain(dev, shape):
+    """The bf16 forms of K1 and K4 (the bf16 profile) against their plain
+    versions, byte for byte, at block columns that fill no run of 16 (200
+    wide: 25); K4 over clamp and truncation edges; each under its own
+    launch name."""
+    t, h, w = shape
+    frames = synthetic_video(t, h, w, seed=3)
+    kernels.LAUNCHES.clear()
+    cubes, sums = relayout.frames_to_cubes(torch.from_numpy(frames).to(dev), torch.bfloat16)
+    p_cubes, p_sums = relayout.frames_to_cubes_plain(torch.from_numpy(frames), torch.bfloat16)
+    assert cubes.dtype == torch.bfloat16
+    assert torch.equal(cubes.cpu(), p_cubes) and torch.equal(sums.cpu(), p_sums)
+    pixels = torch.from_numpy(
+        np.random.default_rng(1).uniform(-30, 290, p_cubes.shape).astype(np.float32))
+    pixels[:, :6] = torch.tensor([-0.5, 0.99609375, 254.0, 255.0, 256.0, 127.5])
+    pixels = pixels.bfloat16()
+    got = relayout.cubes_to_frames(pixels.to(dev), h, w)
+    assert torch.equal(got.cpu(), relayout.cubes_to_frames_plain(pixels, h, w))
+    assert kernels.LAUNCHES["frames_to_cubes_bf16"] == kernels.LAUNCHES["cubes_to_frames_bf16"] == 1
+    assert not kernels.LAUNCHES["frames_to_cubes"] and not kernels.LAUNCHES["cubes_to_frames"]
+
+
+@pytest.mark.parametrize("block", [8, 4], ids=["8x8x8", "4x4x4"])
+def test_bf16_codec_on_card_equals_cpu(dev, block):
+    """The bf16 profile on the card within chip_smoke.py's bf16 bounds: the
+    stream carries the card's ints, which differ from the plain CPU bf16
+    quantize's in at most 10 per million (cuBLAS sums the float32 products
+    in another order, which can move a bf16 rounding); pixels within 1 LSB
+    of the CPU's bf16 decode of the same stream on < 1%; at 8x8x8 the bf16
+    forms of K1 and K4 run, never the float32 ones."""
+    cfg = CodecConfig(compute_dtype="bfloat16", block_w=block, block_h=block, block_d=block)
+    clip = synthetic_video(16, 256, 256, seed=8)
+    kernels.LAUNCHES.clear()
+    data = encode_video(clip, cfg, device=dev)
+    out = decode_video(data, 256, 256, 16, cfg, device=dev)
+    bf16_forms = kernels.LAUNCHES["frames_to_cubes_bf16"] > 0 and \
+        kernels.LAUNCHES["cubes_to_frames_bf16"] > 0
+    assert bf16_forms == (block == 8)
+    assert not kernels.LAUNCHES["frames_to_cubes"] and not kernels.LAUNCHES["cubes_to_frames"]
+    gops = torch.from_numpy(clip).split(cfg.gop_size)
+    ctx, cpu = TransformContext(cfg, dev), TransformContext(cfg, "cpu")
+    q = torch.cat([transform.quantize_step(f.to(dev), ctx).cpu() for f in gops])
+    np.testing.assert_array_equal(_stream_ints(data, clip.size), q.reshape(-1).numpy())
+    q_cpu = torch.cat([transform.quantize_step(f, cpu) for f in gops])
+    assert int((q != q_cpu).sum()) <= 10e-6 * q.numel()
+    d = np.abs(out.astype(np.int16) - decode_video(data, 256, 256, 16, cfg, cpu))
+    assert d.max() <= 1 and (d > 0).mean() < 0.01
+
+
 def _stream_bytes(total_bits: int) -> int:
     """Bytes of the stream words K3 defines: words [0, ceil(total_bits /
     32)); the words past them are unspecified."""

@@ -140,16 +140,19 @@ def test_truncated_and_corrupt_streams_raise(ctx, streams):
     {"cfg": CodecConfig(transport_delta=True)},
 ], ids=["bf16", "transport_delta"])
 def test_scope_guards_raise(clip, ctx, streams, kwargs):
-    """bf16 is not ported and raises.  transport_delta is: the guard is
-    gone, and the delta wire leaves the stream and the pixels as they are
-    (tests/test_pipeline.py:241), in both sinks, equal to the JAX
-    package's delta encode."""
+    """Both guards are gone.  bf16: in both sinks the stream equals the
+    JAX package's bf16 encode byte for byte and decodes to its bf16
+    pixels.  transport_delta: the delta wire leaves the stream and the
+    pixels as they are (tests/test_pipeline.py:241), in both sinks, equal
+    to the JAX package's delta encode."""
     if kwargs["cfg"].compute_dtype != "float32":
-        frames = np.zeros((8, 16, 16), np.uint8)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            encode_video(frames, device="cpu", **kwargs)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            decode_video(b"", 16, 16, 8, device="cpu", **kwargs)
+        for workers in (0, 2):
+            cfg = CodecConfig(deflate_workers=workers, compute_dtype="bfloat16")
+            jcfg = j_config.CodecConfig(deflate_workers=workers, compute_dtype="bfloat16")
+            data = encode_video(clip, cfg, device="cpu")
+            assert data == j_encoder.encode_video(clip, jcfg)
+            np.testing.assert_array_equal(decode_video(data, W, H, T, cfg, device="cpu"),
+                                          j_decoder.decode_video(data, W, H, T, jcfg))
         return
     for workers in (0, 2):
         cfg = CodecConfig(deflate_workers=workers, transport_delta=True)

@@ -124,14 +124,24 @@ def test_lowered_matmul_precision_raises(contexts):
     CodecConfig(transport_delta=True),
 ], ids=["bf16", "transport_delta"])
 def test_context_scope_guards(cfg):
-    """bf16 still raises; a transport_delta context builds, and its device
-    steps take and give wrapping temporal deltas: the front half rebuilds
-    the frames GOP by GOP (the ints equal quantize_step's on the raw
-    frames), and _finish_frames emits one GOP's deltas as the JAX
-    package's does."""
+    """Both contexts build.  bf16: its matrices are bfloat16 and equal the
+    JAX context's, and quantize_step's ints equal the JAX package's bf16
+    ints.  transport_delta: its device steps take and give wrapping
+    temporal deltas: the front half rebuilds the frames GOP by GOP (the
+    ints equal quantize_step's on the raw frames), and _finish_frames
+    emits one GOP's deltas as the JAX package's does."""
     if cfg.compute_dtype != "float32":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            transform.TransformContext(cfg, "cpu")
+        ctx = transform.TransformContext(cfg, "cpu")
+        jctx = j_transform.TransformContext(j_config.CodecConfig(compute_dtype="bfloat16"))
+        for k in ("enc_t", "enc_t_pair", "dec_me", "dec_mo"):
+            assert getattr(ctx, k).dtype == torch.bfloat16
+            np.testing.assert_array_equal(getattr(ctx, k).float().numpy(),
+                                          np.asarray(getattr(jctx, k)).astype(np.float32))
+        frames = _noise(16, 32, 48)
+        np.testing.assert_array_equal(
+            transform.quantize_step(torch.from_numpy(frames), ctx).numpy(),
+            np.asarray(j_transform.quantize_step(jnp.asarray(frames), jctx.enc_t,
+                                                 cfg=jctx.cfg)))
         return
     ctx = transform.TransformContext(cfg, "cpu")
     frames = _noise(16, 32, 48)
