@@ -445,6 +445,8 @@ def cmd_encode(args) -> int:
             f"{metrics.bits_per_pixel(written, width, height, frames):.3f} "
             f"bpp) in {dt:.2f}s ({frames / dt:.1f} fps)"
         )
+        if args.stats and hasattr(enc, "timer"):
+            print(enc.timer.report(), file=sys.stderr)
         return 0
     if mesh is not None:
         from .parallel.sharding import ShardedEncoder
@@ -515,7 +517,7 @@ def cmd_encode(args) -> int:
         f"({metrics.bits_per_pixel(written, width, height, frames):.3f} bpp) "
         f"in {dt:.2f}s ({frames / dt:.1f} fps)"
     )
-    if args.stats and hasattr(enc, "timer"):
+    if args.stats:
         print(enc.timer.report(), file=sys.stderr)
     return 0
 

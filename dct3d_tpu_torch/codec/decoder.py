@@ -29,6 +29,7 @@ import torch
 
 from ..config import CodecConfig
 from ..ops import relayout
+from ..profiling import trace, traced_iter
 from . import entropy
 from .transform import TransformContext, planar4_to_frames, to_device
 
@@ -73,20 +74,24 @@ def _dispatch_planar4(planar, ctx: TransformContext, height: int,
     the host (_split_dc_flat).  A 4-tuple (wire, dc, exc_idx, exc_val) is a
     turbo member (codec/turbo._parse_payload(split_dc=True)): the (cube/2,
     cubes) wire plane goes up as it is and K8 turns it into the flat plane
-    on the device.  Both then run the same planar4_to_frames."""
+    on the device.  Both then run the same planar4_to_frames.  Spans:
+    ``dispatch`` over the whole call, ``stage_in`` over the uploads."""
     dev = ctx.device
-    if len(planar) == 4:
-        wire, dc, idx, val = planar
-        plane = relayout.wire_to_plane(to_device(wire, dev)).reshape(-1)
-    else:
-        plane, idx, val = planar
-        dc, idx, val = _split_dc_flat(plane, idx, val, ctx.cfg.cube_size)
-        plane = to_device(plane, dev)
-    return planar4_to_frames(
-        plane, to_device(idx.astype(np.int64, copy=False), dev),
-        to_device(val.astype(np.int32, copy=False), dev), to_device(dc, dev), ctx,
-        height, width,
-    )
+    with trace("dispatch"):
+        if len(planar) == 4:
+            plane, dc, idx, val = planar
+        else:
+            plane, idx, val = planar
+            dc, idx, val = _split_dc_flat(plane, idx, val, ctx.cfg.cube_size)
+        with trace("stage_in"):
+            plane, idx, val, dc = (
+                to_device(plane, dev),
+                to_device(idx.astype(np.int64, copy=False), dev),
+                to_device(val.astype(np.int32, copy=False), dev),
+                to_device(dc, dev))
+        if len(planar) == 4:
+            plane = relayout.wire_to_plane(plane).reshape(-1)
+        return planar4_to_frames(plane, idx, val, dc, ctx, height, width)
 
 
 def _to_host_async(frames: torch.Tensor):
@@ -228,11 +233,12 @@ def decode_frame_range(
     g0, g1 = start // fpg, -(-stop // fpg)
     cpg = width * height * fpg
     try:
-        if sync_offsets is not None:
-            raw = entropy.parallel_inflate(data, sync_offsets)
-        else:
-            z = zlib.decompressobj()
-            raw = z.decompress(data) + z.flush()
+        with trace("inflate"):
+            if sync_offsets is not None:
+                raw = entropy.parallel_inflate(data, sync_offsets)
+            else:
+                z = zlib.decompressobj()
+                raw = z.decompress(data) + z.flush()
     except zlib.error as e:
         raise ValueError(f"corrupt bitstream: {e}") from e
     payload = np.frombuffer(raw, np.uint8)
@@ -270,16 +276,18 @@ def decode_frame_range(
     pending: collections.deque = collections.deque()
 
     def drain_one() -> None:
-        k, host, done = pending.popleft()
-        if done is not None:
-            done.synchronize()
-        out[k * fpg : (k + 1) * fpg] = _undelta(host.numpy(), ctx.cfg)
+        with trace("readback"):
+            k, host, done = pending.popleft()
+            if done is not None:
+                done.synchronize()
+            out[k * fpg : (k + 1) * fpg] = _undelta(host.numpy(), ctx.cfg)
 
     try:
-        for k, (plane, ei, ev, _pos) in enumerate(entropy.parallel_chunks(
-            payload, cpg, g1 - g0, entropy.decode_values_planar4,
-            entropy_workers, positions=span,
-        )):
+        for k, (plane, ei, ev, _pos) in enumerate(traced_iter(
+            "entropy_wait", entropy.parallel_chunks(
+                payload, cpg, g1 - g0, entropy.decode_values_planar4,
+                entropy_workers, positions=span,
+            ))):
             frames_dev = _dispatch_planar4((plane, ei, ev), ctx, height, width)
             pending.append((k, *_to_host_async(frames_dev)))
             if len(pending) >= _WINDOW:

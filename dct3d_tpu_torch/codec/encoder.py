@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..config import CodecConfig
-from ..profiling import StageTimer
+from ..profiling import StageTimer, trace
 from . import entropy
 from .transform import (
     EncodedGOP, TransformContext, encode_step, quantize_step, to_device,
@@ -73,14 +73,15 @@ class StreamingEncoder:
         self.height = height
         self.ctx = ctx or TransformContext(self.cfg, device)
         self.device = self.ctx.device
-        self.sink = entropy.make_sink(self.cfg)
+        #: per-stage wall time and bytes (``encode --stats``); the sink's
+        #: ``deflate`` stages land here too
+        self.timer = StageTimer()
+        self.sink = entropy.make_sink(self.cfg, self.timer)
         self.sink.carry_code, self.sink.carry_bits = carry
         self.device_pack = device_pack
         #: frames pushed so far (GOP multiples); complete once finish()
         #: returns, and what a container's member header records.
         self.frames_encoded = 0
-        #: per-stage wall time and bytes (``encode --stats``)
-        self.timer = StageTimer()
         # Single-thread drainer: serializes sink access and keeps output order
         # while overlapping readback/DEFLATE with device compute.
         self._drainer = ThreadPoolExecutor(max_workers=1)
@@ -131,7 +132,7 @@ class StreamingEncoder:
             with torch.cuda.stream(self._copy_stream):
                 self._copy_stream.wait_event(done)
                 host = self._copy_back(q)
-        with self.timer.stage("deflate", host.nbytes):
+        with self.timer.stage("sink_push", host.nbytes):
             return self.sink.push_values(host.reshape(-1))
 
     def _drain_gop(self, gop: EncodedGOP, done) -> bytes:
@@ -146,7 +147,7 @@ class StreamingEncoder:
         self.gop_bit_ends.append(self._abs_end)
         # Per-GOP sync boundary: the parallel sink resets its window here so
         # decode can inflate GOPs independently (the serial sink no-ops).
-        with self.timer.stage("deflate", total_bits // 8):
+        with self.timer.stage("sink_push", total_bits // 8):
             self.sink.gop_boundary()
             return self.sink.push_packed(packed, total_bits)
 
@@ -177,13 +178,14 @@ class StreamingEncoder:
         for i in range(0, t, gop_size):
             raw = frames[i : i + gop_size]
             with self.timer.stage("dispatch", raw.nbytes):
+                if self.device_pack and self.cfg.transport_delta:
+                    raw = _deltas(raw)
+                with self.timer.stage("stage_in", raw.nbytes):
+                    frames_dev = to_device(raw, self.device)
                 if not self.device_pack:
-                    step = quantize_step(to_device(raw, self.device), self.ctx)
+                    step = quantize_step(frames_dev, self.ctx)
                 else:
-                    if self.cfg.transport_delta:
-                        raw = _deltas(raw)
-                    step = encode_step(to_device(raw, self.device), self.ctx,
-                                       *self._carry)
+                    step = encode_step(frames_dev, self.ctx, *self._carry)
                     self._carry = (step.carry_code, step.carry_bits)
             done = None
             if self._copy_stream is not None:
@@ -193,15 +195,19 @@ class StreamingEncoder:
             self._out.append(self._drainer.submit(drain, step, done))
             # Backpressure: bound in-flight device buffers / host memory.
             if len(self._out) > _MAX_INFLIGHT:
-                self._out[0].result()
+                with trace("wait_drainer"):
+                    self._out[0].result()
         self.frames_encoded += t
         return self._collect()
 
     def finish(self) -> bytes:
         """Flush pipeline + carry + DEFLATE tail.  Stream complete after;
         releases the drainer and sink threads."""
-        self._out.append(self._drainer.submit(self.sink.finish))
-        out = self._collect(block=True)
+        tail = self._drainer.submit(self.sink.finish)
+        with trace("wait_drainer"):
+            out = self._collect(block=True)
+        with trace("wait_deflate"):
+            out += tail.result()
         self._drainer.shutdown(wait=True)
         self.sink.close()
         return out

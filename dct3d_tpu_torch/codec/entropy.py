@@ -41,6 +41,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from .. import native
+from ..profiling import StageTimer, trace, traced
 
 
 def _as_u8(data) -> np.ndarray:
@@ -517,7 +518,7 @@ def speculative_planar4_chunks(payload, values_per_chunk: int, n_chunks: int,
             for c in range(n_chunks):
                 for k in range(c, min(c + ahead, n_chunks)):
                     if k not in futs:
-                        futs[k] = pool.submit(build_chunk, k)
+                        futs[k] = pool.submit(traced, "entropy", build_chunk, k)
                 yield futs.pop(c).result()
 
     return gen()
@@ -647,14 +648,15 @@ def parallel_chunks(payload, values_per_chunk: int, n_chunks: int,
                         scan_values(payload, values_per_chunk, positions[-1])
                     )
                 f = pool.submit(
-                    decode_values_planar4_pair, payload, values_per_chunk,
-                    positions[k], positions[k + 1],
+                    traced, "entropy", decode_values_planar4_pair, payload,
+                    values_per_chunk, positions[k], positions[k + 1],
                 )
                 futs[k] = (f, 0)
                 futs[k + 1] = (f, 1)
             else:
                 futs[k] = (pool.submit(
-                    decode_fn, payload, values_per_chunk, positions[k]
+                    traced, "entropy", decode_fn, payload, values_per_chunk,
+                    positions[k],
                 ), None)
 
         lookahead = (2 * workers + 2) if pair else (workers + 1)
@@ -917,10 +919,15 @@ def _final_byte(carry_code: int, carry_bits: int) -> int:
 
 class DeflateSink:
     """One zlib stream across all GOP chunks, whole bytes only, final extra
-    byte on close — byte-compatible with both reference encoders."""
+    byte on close — byte-compatible with both reference encoders.
 
-    def __init__(self, level: int = zlib.Z_BEST_COMPRESSION) -> None:
+    ``timer`` (a StageTimer, e.g. the encoder's) gets a ``deflate`` stage
+    for each compress call, with its input bytes."""
+
+    def __init__(self, level: int = zlib.Z_BEST_COMPRESSION,
+                 timer: StageTimer | None = None) -> None:
         self._z = zlib.compressobj(level)
+        self.timer = timer or StageTimer()
         self.carry_code = 0  # partial byte's bits, right-aligned
         self.carry_bits = 0  # 0..7
 
@@ -930,7 +937,10 @@ class DeflateSink:
         chunk, self.carry_code, self.carry_bits = _split_carry(
             packed, total_bits, self.carry_code, self.carry_bits
         )
-        return self._z.compress(chunk) if chunk else b""
+        if not chunk:
+            return b""
+        with self.timer.stage("deflate", len(chunk)):
+            return self._z.compress(chunk)
 
     def push_values(self, values: np.ndarray) -> bytes:
         """Host path: entropy-code values directly into the sink."""
@@ -941,10 +951,13 @@ class DeflateSink:
         """Final partial byte (zero-padded) or a zero byte, then Z_FINISH —
         mirroring `expGolombCodedDataSize + 1` (encoder.c:270) and
         `getBufferPosition() + 1` (Encoder.java:117)."""
-        out = self._z.compress(bytes([_final_byte(self.carry_code, self.carry_bits)]))
+        with self.timer.stage("deflate", 1):
+            out = self._z.compress(
+                bytes([_final_byte(self.carry_code, self.carry_bits)]))
+            out += self._z.flush(zlib.Z_FINISH)
         self.carry_code = 0
         self.carry_bits = 0
-        return out + self._z.flush(zlib.Z_FINISH)
+        return out
 
     def gop_boundary(self) -> None:
         """No-op: one z_stream spans the whole file (reference layout), so
@@ -969,14 +982,17 @@ class ParallelDeflateSink:
     releases the GIL, so the workers run in parallel.
 
     Byte layout differs from the serial sink (block boundaries), payload is
-    identical.  Select via CodecConfig.deflate_workers.
+    identical.  Select via CodecConfig.deflate_workers.  ``timer`` gets a
+    ``deflate`` stage for each block, on the worker that compresses it.
     """
 
     _HEADER = b"\x78\xda"  # CMF/FLG, 32K window, FCHECK valid
 
     def __init__(self, level: int = zlib.Z_BEST_COMPRESSION,
-                 workers: int | None = None, block_size: int = 1 << 20) -> None:
+                 workers: int | None = None, block_size: int = 1 << 20,
+                 timer: StageTimer | None = None) -> None:
         self._level = level
+        self.timer = timer or StageTimer()
         self._block_size = block_size
         self._pool = ThreadPoolExecutor(
             max_workers=workers or max(1, (os.cpu_count() or 2) - 1)
@@ -994,14 +1010,16 @@ class ParallelDeflateSink:
         self._block_lens: list[int] = []
 
     def _compress_block(self, data: bytes, zdict: bytes) -> bytes:
-        if zdict:
-            co = zlib.compressobj(
-                self._level, zlib.DEFLATED, -zlib.MAX_WBITS,
-                zlib.DEF_MEM_LEVEL, zlib.Z_DEFAULT_STRATEGY, zdict,
-            )
-        else:
-            co = zlib.compressobj(self._level, zlib.DEFLATED, -zlib.MAX_WBITS)
-        return co.compress(data) + co.flush(zlib.Z_FULL_FLUSH)
+        with self.timer.stage("deflate", len(data)):
+            if zdict:
+                co = zlib.compressobj(
+                    self._level, zlib.DEFLATED, -zlib.MAX_WBITS,
+                    zlib.DEF_MEM_LEVEL, zlib.Z_DEFAULT_STRATEGY, zdict,
+                )
+            else:
+                co = zlib.compressobj(self._level, zlib.DEFLATED,
+                                      -zlib.MAX_WBITS)
+            return co.compress(data) + co.flush(zlib.Z_FULL_FLUSH)
 
     def _submit(self, data: bytes) -> None:
         self._adler = zlib.adler32(data, self._adler)
@@ -1076,12 +1094,14 @@ def resolve_workers(deflate_workers: int) -> int:
     return max(1, deflate_workers)
 
 
-def make_sink(cfg) -> DeflateSink | ParallelDeflateSink:
-    """Sink per config: 0 workers = serial reference-parity stream."""
+def make_sink(cfg, timer: StageTimer | None = None
+              ) -> DeflateSink | ParallelDeflateSink:
+    """Sink per config: 0 workers = serial reference-parity stream.
+    ``timer`` receives the sink's ``deflate`` stages."""
     if cfg.deflate_workers == 0:
-        return DeflateSink(cfg.zlib_level)
+        return DeflateSink(cfg.zlib_level, timer)
     workers = None if cfg.deflate_workers < 0 else cfg.deflate_workers
-    return ParallelDeflateSink(cfg.zlib_level, workers)
+    return ParallelDeflateSink(cfg.zlib_level, workers, timer=timer)
 
 
 def parallel_inflate(data: bytes, syncs: list[int]) -> bytes:
@@ -1101,9 +1121,10 @@ def parallel_inflate(data: bytes, syncs: list[int]) -> bytes:
     bounds = list(syncs) + [len(data)]
 
     def one(k: int):
-        z = zlib.decompressobj(-zlib.MAX_WBITS)
-        out = z.decompress(data[bounds[k] : bounds[k + 1]]) + z.flush()
-        return out, zlib.adler32(out), len(out)
+        with trace("inflate"):
+            z = zlib.decompressobj(-zlib.MAX_WBITS)
+            out = z.decompress(data[bounds[k] : bounds[k + 1]]) + z.flush()
+            return out, zlib.adler32(out), len(out)
 
     try:
         with ThreadPoolExecutor(os.cpu_count() or 2) as pool:

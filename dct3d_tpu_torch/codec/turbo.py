@@ -57,6 +57,7 @@ from ..parallel.multihost import (
 )
 from ..parallel.mesh import GOP_AXIS, TILE_AXIS
 from ..parallel.sharding import _check_tiles, fetch, mesh_contexts
+from ..profiling import StageTimer, trace, traced
 from . import entropy
 from .decoder import _dispatch_planar4, _to_host_async, _undelta, decode_video
 from .encoder import _deltas, encode_video
@@ -321,7 +322,10 @@ class TurboEncoder:
     its own CUDA stream into pinned memory, and compresses the member;
     output order is kept by the futures deque.  A GOP whose exception
     tables overflowed is re-encoded with 256 slots by its worker, on the
-    worker's stream.
+    worker's stream.  ``timer`` holds the stages (``encode --turbo
+    --stats``): ``dispatch`` and ``stage_in`` on the pushing thread,
+    ``device_wait``, ``d2h`` and ``member`` (expand and compress) summed
+    over the drain workers.
 
     Usage:
         enc = TurboEncoder(width, height, cfg, device="cuda")
@@ -351,6 +355,8 @@ class TurboEncoder:
         self.slots = slots
         self.frames_encoded = 0
         self.max_inflight = max_inflight
+        #: per-stage wall time and bytes (``encode --turbo --stats``)
+        self.timer = StageTimer()
         self._drainer = ThreadPoolExecutor(
             max_workers=entropy.resolve_workers(self.cfg.deflate_workers)
         )
@@ -376,24 +382,30 @@ class TurboEncoder:
             stream = self._local.stream = torch.cuda.Stream(self.device)
         with torch.cuda.stream(stream):
             stream.wait_event(done)
-            if bool(gop.overflow):  # synchronizes this stream
+            with self.timer.stage("device_wait"):
+                overflow = bool(gop.overflow)  # synchronizes this stream
+            if overflow:
                 gop = encode_step_turbo(frames_dev, self.ctx, _RETRY_SLOTS,
                                         wire=True)
-            host = []
-            for t in gop[:5]:
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                h.copy_(t, non_blocking=True)
-                host.append(h)
-            stream.synchronize()
+            with self.timer.stage("d2h", sum(t.numel() * t.element_size()
+                                             for t in gop[:5])):
+                host = []
+                for t in gop[:5]:
+                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    h.copy_(t, non_blocking=True)
+                    host.append(h)
+                stream.synchronize()
         return [h.numpy() for h in host]
 
     def _drain_gop(self, gop: TurboGOP, frames_dev: torch.Tensor, done,
                    t: int, raw: np.ndarray) -> bytes:
-        plane, dc, lidx, vals, counts = self._readback(gop, frames_dev, done)
-        idx, val = _expand_pair(lidx, vals, counts, self.cfg.cube_size)
-        payload = _member_payload(plane, dc, idx, val, self.cfg, wire=True)
-        return _pick_member(raw, payload, idx.size, t, self.member_type,
-                            self.cfg, self.ctx, self._warn_fallback)
+        host = self._readback(gop, frames_dev, done)
+        plane, dc, lidx, vals, counts = host
+        with self.timer.stage("member", sum(h.nbytes for h in host)):
+            idx, val = _expand_pair(lidx, vals, counts, self.cfg.cube_size)
+            payload = _member_payload(plane, dc, idx, val, self.cfg, wire=True)
+            return _pick_member(raw, payload, idx.size, t, self.member_type,
+                                self.cfg, self.ctx, self._warn_fallback)
 
     def push(self, frames: np.ndarray) -> bytes:
         """Encode a (T, H, W) uint8 batch; T must be a GOP multiple.
@@ -408,10 +420,12 @@ class TurboEncoder:
             raise ValueError("frame geometry mismatch")
         for i in range(0, t, gop):
             raw = frames[i : i + gop]
-            frames_dev = to_device(
-                _deltas(raw) if self.cfg.transport_delta else raw, self.device)
-            step = encode_step_turbo(frames_dev, self.ctx, self.slots,
-                                     wire=True)
+            with self.timer.stage("dispatch", raw.nbytes):
+                up = _deltas(raw) if self.cfg.transport_delta else raw
+                with self.timer.stage("stage_in", up.nbytes):
+                    frames_dev = to_device(up, self.device)
+                step = encode_step_turbo(frames_dev, self.ctx, self.slots,
+                                         wire=True)
             done = None
             if self.device.type == "cuda":
                 done = torch.cuda.Event()
@@ -419,7 +433,8 @@ class TurboEncoder:
             self._out.append(self._drainer.submit(
                 self._drain_gop, step, frames_dev, done, gop, raw))
             if len(self._out) > self.max_inflight:
-                self._out[0].result()
+                with trace("wait_drainer"):
+                    self._out[0].result()
         self.frames_encoded += t
         out = []
         while self._out and self._out[0].done():
@@ -429,8 +444,9 @@ class TurboEncoder:
     def drain(self) -> bytes:
         """Block for every in-flight member and return its bytes."""
         out = []
-        while self._out:
-            out.append(self._out.popleft().result())
+        with trace("wait_drainer"):
+            while self._out:
+                out.append(self._out.popleft().result())
         return b"".join(out)
 
     def finish(self) -> bytes:
@@ -869,10 +885,11 @@ def _decode_members(members, pool, width, height, cfg, ctx) -> np.ndarray:
     pending: collections.deque = collections.deque()
 
     def drain_one() -> None:
-        a0, t, host, done = pending.popleft()
-        if done is not None:
-            done.synchronize()
-        out[a0 : a0 + t] = _undelta(host.numpy(), ctx.cfg)
+        with trace("readback"):
+            a0, t, host, done = pending.popleft()
+            if done is not None:
+                done.synchronize()
+            out[a0 : a0 + t] = _undelta(host.numpy(), ctx.cfg)
 
     cube = cfg.cube_size
     lookahead = max(4, 2 * pool._max_workers)
@@ -882,13 +899,15 @@ def _decode_members(members, pool, width, height, cfg, ctx) -> np.ndarray:
         if mtype in _REF_TYPES:
             return pool.submit(decode_video, payload, width, height, t_m,
                                cfg, ctx)
-        return pool.submit(_parse_payload, payload, cube, True, True)
+        return pool.submit(traced, "parse", _parse_payload, payload, cube,
+                           True, True)
 
     inflight = collections.deque(submit(m) for m in members[:lookahead])
     nxt = len(inflight)
     a0 = 0
     for t, _, mtype in members:
-        planar = inflight.popleft().result()
+        with trace("entropy_wait"):
+            planar = inflight.popleft().result()
         if nxt < len(members):
             inflight.append(submit(members[nxt]))
             nxt += 1

@@ -41,6 +41,7 @@ from ..codec.transform import (
 )
 from ..config import CodecConfig
 from ..ops import bitpack, expgolomb, group_pack
+from ..profiling import StageTimer
 from .mesh import GOP_AXIS, TILE_AXIS, Mesh, normalize_device
 
 _WINDOW = 3  # decode: mesh steps in flight on the devices
@@ -91,7 +92,9 @@ class ShardedEncoder:
     DEFLATE sink, the same inflated payload: that sink marks one sync point
     a mesh step).  The shards get raw frames whatever cfg.transport_delta
     says (deltas are a single-device upload optimization; the stream is
-    the same).
+    the same).  ``timer`` holds the stages (``encode --mesh GxT --stats``):
+    ``dispatch`` and ``stage_in`` a mesh step, ``sink_push`` and the
+    sink's ``deflate``.
     """
 
     def __init__(
@@ -113,7 +116,9 @@ class ShardedEncoder:
         self._shard_cfg = dataclasses.replace(self.cfg, transport_delta=False)
         self._ctx = mesh_contexts(mesh, self._shard_cfg, ctx)
         self._max_width = bitpack.max_codeword_bits(self.cfg.cube_size)
-        self.sink = entropy.make_sink(self.cfg)
+        #: per-stage wall time and bytes (``encode --stats``)
+        self.timer = StageTimer()
+        self.sink = entropy.make_sink(self.cfg, self.timer)
         self.frames_encoded = 0
         #: absolute bit position after each GOP (the seekable index, same
         #: contract as StreamingEncoder.gop_bit_ends); complete after push.
@@ -142,7 +147,8 @@ class ShardedEncoder:
         pending = None
         out = []
         for i in range(0, t, step_t):
-            *step, carry = self._dispatch(frames[i : i + step_t], carry)
+            with self.timer.stage("dispatch", frames[i : i + step_t].nbytes):
+                *step, carry = self._dispatch(frames[i : i + step_t], carry)
             if pending is not None:
                 out.append(self._assemble(*pending))
             pending = step
@@ -159,9 +165,13 @@ class ShardedEncoder:
         n_gop, n_tile = self._mesh_shape
         gop, lh = self.cfg.gop_size, self.height // n_tile
         shards, bits = [], []
-        for k, dev in enumerate(self.mesh.devices):
-            g, t = divmod(k, n_tile)
-            slab = to_device(frames[g * gop : (g + 1) * gop, t * lh : (t + 1) * lh], dev)
+        slabs = []
+        with self.timer.stage("stage_in", frames.nbytes):
+            for k, dev in enumerate(self.mesh.devices):
+                g, t = divmod(k, n_tile)
+                slabs.append(to_device(
+                    frames[g * gop : (g + 1) * gop, t * lh : (t + 1) * lh], dev))
+        for slab, dev in zip(slabs, self.mesh.devices):
             q = _frames_to_q(slab, self._ctx[dev].enc_t, self._shard_cfg).reshape(-1)
             if q.numel() % group_pack.GROUP:
                 code, width = expgolomb.codewords(q)
@@ -233,8 +243,9 @@ class ShardedEncoder:
         # push_packed expects the carry phase's zeros at the front (bit 0).
         # Step-granularity parallel-inflate sync: the parallel sink resets
         # its priming window here (the serial sink does nothing).
-        self.sink.gop_boundary()
-        return self.sink.push_packed(stream, total_bits)
+        with self.timer.stage("sink_push", total_bits // 8):
+            self.sink.gop_boundary()
+            return self.sink.push_packed(stream, total_bits)
 
     def finish(self) -> bytes:
         out = self.sink.finish()

@@ -463,11 +463,12 @@ def test_stats_profile_and_ignored_flags(work, encoded, tmp_path, capsys):
                      *CPU]) == 0
     assert open(out, "rb").read() == open(encoded["default"][1], "rb").read()
     stats = json.loads(capsys.readouterr().err.strip().splitlines()[-1])
-    assert stats["dispatch"]["calls"] == 3 and stats["deflate"]["calls"] == 3
+    assert stats["dispatch"]["calls"] == stats["sink_push"]["calls"] == 3
+    assert stats["deflate"]["calls"] == 4  # a block a GOP, then the final byte
     trace = json.load(open(tmp_path / "prof" / "trace.json"))
-    # The calling thread's stage ranges are in the trace (the drainer
-    # thread's are in --stats only).
-    assert "dispatch" in {e.get("name") for e in trace["traceEvents"]}
+    # The stage ranges of the calling thread and of the drainer and
+    # DEFLATE workers are in the trace.
+    assert {"dispatch", "sink_push", "deflate"} <= {e.get("name") for e in trace["traceEvents"]}
     assert cli.main(["decode", out, str(tmp_path / "d.raw"), str(W), str(H),
                      "--profile-dir", str(tmp_path / "prof2"), *CPU]) == 0
     assert os.path.exists(tmp_path / "prof2" / "trace.json")

@@ -248,7 +248,10 @@ def test_frames_encoded_counts_like_jax(clip, ctx):
     jenc.finish()
     assert counts == [(8, 8), (24, 24)]
     stats = enc.timer.as_dict()
-    assert stats["dispatch"]["calls"] == 3 and stats["deflate"]["calls"] == 3
+    # sink_push: the drainer's hand-off of each GOP to the sink; deflate:
+    # the serial sink's compress of each GOP's bytes, then of the final byte.
+    assert stats["dispatch"]["calls"] == stats["sink_push"]["calls"] == 3
+    assert stats["deflate"]["calls"] == 4
 
 
 @pytest.mark.parametrize("chunk", [50, 1 << 20])
