@@ -5,7 +5,9 @@ encoder.c:88-293): frames stream through one GOP at a time; each GOP is
 transformed and bit-packed on the device (codec/transform.encode_step), the
 cross-GOP bit carry is chained on the device, and a single drainer thread
 copies each GOP's packed bytes to the host and deflates them into one zlib
-stream while the device works on the next GOP.
+stream while the device works on the next GOP.  On a CUDA device with
+``cfg.deflate_workers != 0`` the drainer deflates each GOP on the card
+instead (``entropy.DeviceDeflateSink``) and copies back the compressed span.
 
 With ``cfg.transport_delta`` the host sends each GOP as wrapping uint8
 temporal deltas and the device rebuilds the frames before the transform;
@@ -76,9 +78,12 @@ class StreamingEncoder:
         #: per-stage wall time and bytes (``encode --stats``); the sink's
         #: ``deflate`` stages land here too
         self.timer = StageTimer()
-        self.sink = entropy.make_sink(self.cfg, self.timer)
-        self.sink.carry_code, self.sink.carry_bits = carry
         self.device_pack = device_pack
+        # On a CUDA device the GOPs' bytes deflate on the card (unless the
+        # config asks for the serial reference layout).
+        self.sink = entropy.make_sink(self.cfg, self.timer,
+                                      self.device if device_pack else None)
+        self.sink.carry_code, self.sink.carry_bits = carry
         #: frames pushed so far (GOP multiples); complete once finish()
         #: returns, and what a container's member header records.
         self.frames_encoded = 0
@@ -136,20 +141,33 @@ class StreamingEncoder:
             return self.sink.push_values(host.reshape(-1))
 
     def _drain_gop(self, gop: EncodedGOP, done) -> bytes:
-        """Drainer thread: fetch one GOP's packed bytes and deflate them.
-        Holds the GOP's device tensors until their copy is done."""
+        """Drainer thread: fetch one GOP's packed bytes and deflate them
+        (or, with the device sink, deflate them on the card and fetch the
+        span).  Holds the GOP's device tensors until that is done."""
+        if isinstance(self.sink, entropy.DeviceDeflateSink):
+            with torch.cuda.stream(self._copy_stream):
+                self._copy_stream.wait_event(done)
+                with self.timer.stage("sink_push"):
+                    self.sink.gop_boundary()
+                    out, total_bits = self.sink.push_device(gop.packed, gop.total_bits)
+                    self.timer.add_bytes("sink_push", total_bits // 8)
+            self._note_end(total_bits)
+            return out
         total_bits, packed = self._readback(gop, done)
-        # Per-batch total_bits includes the carried partial byte's bits, so
-        # the absolute end chains as whole-bytes-so-far + batch bits.  The
-        # drainer runs one GOP at a time in stream order, so appending here
-        # yields the in-order index.
-        self._abs_end = ((self._abs_end >> 3) << 3) + total_bits
-        self.gop_bit_ends.append(self._abs_end)
+        self._note_end(total_bits)
         # Per-GOP sync boundary: the parallel sink resets its window here so
         # decode can inflate GOPs independently (the serial sink no-ops).
         with self.timer.stage("sink_push", total_bits // 8):
             self.sink.gop_boundary()
             return self.sink.push_packed(packed, total_bits)
+
+    def _note_end(self, total_bits: int) -> None:
+        """Record a GOP's absolute end bit.  Per-batch total_bits includes
+        the carried partial byte's bits, so the absolute end chains as
+        whole-bytes-so-far + batch bits.  The drainer runs one GOP at a time
+        in stream order, so appending here yields the in-order index."""
+        self._abs_end = ((self._abs_end >> 3) << 3) + total_bits
+        self.gop_bit_ends.append(self._abs_end)
 
     def _collect(self, block: bool = False) -> bytes:
         out = []

@@ -8,6 +8,8 @@ loads jax.
     encode (``StreamingEncoder(device_pack=False)``);
   * the DEFLATE sinks (serial reference-parity layout, and the parallel
     pigz-style layout with per-GOP sync points) and parallel inflate;
+    the port adds ``DeviceDeflateSink``, the parallel layout written by
+    the card's DEFLATE kernels (ops/deflate.py), which a CUDA encode takes;
   * the C decoders: ``eg_scan`` for GOP boundaries, the fused
     decode-to-nibble-plane ``eg_decode_planar4`` and its two-stream pair
     form;
@@ -39,6 +41,7 @@ import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from .. import native
 from ..profiling import StageTimer, trace, traced
@@ -1084,6 +1087,113 @@ class ParallelDeflateSink:
         self._pool.shutdown(wait=True)
 
 
+class DeviceDeflateSink:
+    """DEFLATE on the card (ops/deflate.py), in ParallelDeflateSink's
+    layout: ``78 DA``; each GOP's whole bytes as raw DEFLATE blocks that
+    refer to nothing before the GOP, then an empty stored block after byte
+    alignment, the GOP's sync offset at its first block; on finish the
+    final byte as a stored block, ``03 00`` and the adler32 of the whole
+    payload.  ``parallel_inflate`` and the index v2 sync offsets read it as
+    they read the parallel sink's stream.
+
+    ``push_device`` takes a GOP's CUDA bytes and bit count as the device
+    step left them; the kernels run on the caller's current stream and
+    read the byte count there, and the host waits once for the span's
+    length and once for its copy; ``append_span`` then places the span
+    (a span of the plain engine places the same way).  ``timer`` gets a
+    ``deflate`` stage a GOP (launch, wait, copy; the GOP's bytes in) and a
+    ``deflate_out`` stage (the copy; the span's bytes)."""
+
+    _HEADER = ParallelDeflateSink._HEADER
+
+    def __init__(self, level: int = zlib.Z_BEST_COMPRESSION,
+                 timer: StageTimer | None = None) -> None:
+        self._level = level
+        self.timer = timer or StageTimer()
+        self.carry_code = 0
+        self.carry_bits = 0
+        self._adler = zlib.adler32(b"")
+        self._pos = 0  # compressed bytes written so far
+        self._syncs: list[int] = []
+        self._ws = None  # ops.deflate.Workspace, sized by the first GOP
+        self._host = None  # pinned copy buffer
+
+    def _head(self) -> bytes:
+        if self._pos:
+            return b""
+        self._pos = len(self._HEADER)
+        return self._HEADER
+
+    def gop_boundary(self) -> None:
+        """Mark the next GOP's first block as a sync point."""
+        self._syncs.append(self._pos or len(self._HEADER))
+
+    def sync_offsets(self) -> list[int] | None:
+        """Absolute compressed offset of each marked GOP (None if none)."""
+        return self._syncs or None
+
+    def push_device(self, packed: torch.Tensor, total_bits: torch.Tensor
+                    ) -> tuple[bytes, int]:
+        """Deflate one GOP on the card: ``packed`` its (cap,) uint8 CUDA
+        bytes, the carry's bits first, ``total_bits`` its 0-d int64 bit
+        count, both where the device step left them.  Returns (stream
+        bytes, total_bits)."""
+        from ..ops import deflate as dev_deflate
+
+        if not packed.is_cuda:
+            raise ValueError("DeviceDeflateSink deflates CUDA tensors only")
+        with self.timer.stage("deflate"):
+            if self._ws is None or self._ws.cap < packed.numel():
+                self._ws = dev_deflate.Workspace(packed.numel(), packed.device)
+            out, info = dev_deflate.deflate(packed, total_bits, self._level, self._ws)
+            total, nout, s1, s2, tail = self._fetch(info, 5).tolist()
+            self.timer.add_bytes("deflate", total // 8)
+            with self.timer.stage("deflate_out", nout):
+                span = self._fetch(out, nout).numpy().tobytes()
+        return self.append_span(span, total, s1, s2, tail), total
+
+    def append_span(self, span: bytes, total_bits: int, s1: int, s2: int,
+                    tail: int) -> bytes:
+        """Place one GOP's span (``ops.deflate``'s output and record: its
+        bit count, adler32 sums and partial byte) in the stream; returns
+        the stream bytes it adds."""
+        from ..ops import deflate as dev_deflate
+
+        n, rem = total_bits // 8, total_bits % 8
+        self.carry_code = tail >> (8 - rem) if rem else 0
+        self.carry_bits = rem
+        self._adler = _adler32_combine(self._adler, dev_deflate.adler32_of(s1, s2, n), n)
+        head = self._head()
+        self._pos += len(span)
+        return head + span
+
+    def _fetch(self, t: torch.Tensor, n: int) -> torch.Tensor:
+        """The first ``n`` elements of the CUDA tensor ``t`` on the host: a
+        copy into a pinned buffer on the current stream, then a wait."""
+        nbytes = n * t.element_size()
+        if self._host is None or self._host.numel() < nbytes:
+            self._host = torch.empty(max(nbytes, 1 << 20), dtype=torch.uint8,
+                                     pin_memory=True)
+        host = self._host[:nbytes].view(t.dtype)
+        host.copy_(t[:n], non_blocking=True)
+        torch.cuda.current_stream(t.device).synchronize()
+        return host
+
+    def finish(self) -> bytes:
+        """The final byte (encoder.c:270) as a stored block, the final
+        empty block and the adler32."""
+        last = _final_byte(self.carry_code, self.carry_bits)
+        self.carry_code = 0
+        self.carry_bits = 0
+        self._adler = _adler32_combine(self._adler, zlib.adler32(bytes([last])), 1)
+        return (self._head() + bytes([0, 1, 0, 0xFE, 0xFF, last]) + b"\x03\x00"
+                + struct.pack(">I", self._adler & 0xFFFFFFFF))
+
+    def close(self) -> None:
+        """Drop the card's workspace and the pinned buffers."""
+        self._ws = self._host = None
+
+
 def resolve_workers(deflate_workers: int) -> int:
     """cfg.deflate_workers -> a concrete thread count: 0 means serial
     (1 worker), negative means all cores but one, N>0 means exactly N.
@@ -1094,12 +1204,16 @@ def resolve_workers(deflate_workers: int) -> int:
     return max(1, deflate_workers)
 
 
-def make_sink(cfg, timer: StageTimer | None = None
-              ) -> DeflateSink | ParallelDeflateSink:
-    """Sink per config: 0 workers = serial reference-parity stream.
-    ``timer`` receives the sink's ``deflate`` stages."""
+def make_sink(cfg, timer: StageTimer | None = None, device=None
+              ) -> DeflateSink | ParallelDeflateSink | DeviceDeflateSink:
+    """Sink per config: 0 workers = serial reference-parity stream; else
+    the device sink when the GOPs' bytes are on a CUDA ``device``, the
+    parallel zlib sink otherwise.  ``timer`` receives the sink's
+    ``deflate`` stages."""
     if cfg.deflate_workers == 0:
         return DeflateSink(cfg.zlib_level, timer)
+    if device is not None and torch.device(device).type == "cuda":
+        return DeviceDeflateSink(cfg.zlib_level, timer)
     workers = None if cfg.deflate_workers < 0 else cfg.deflate_workers
     return ParallelDeflateSink(cfg.zlib_level, workers, timer=timer)
 

@@ -9,9 +9,9 @@ ctypes: every pointer and the stream travel as ``c_void_p``.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without nvcc or a card.  Each op wrapper
-(ops/relayout.py, ops/group_pack.py, ops/splice.py, ops/exc_pack.py) takes its plain PyTorch
-version only for CPU tensors; for a CUDA tensor it launches through here or
-raises, and never falls back.
+(ops/relayout.py, ops/group_pack.py, ops/splice.py, ops/exc_pack.py,
+ops/deflate.py) takes its plain version only for CPU tensors; for a CUDA
+tensor it launches through here or raises, and never falls back.
 
 ``LAUNCHES`` counts kernel launches by name, process-wide: a wrapper adds
 one where it launches its kernel and nowhere else, so a run can show that
@@ -62,6 +62,7 @@ _SIGNATURES = {
     "dct3d_compact_groups": [_P, _P, _P, _P, _I, _I, _I, _P],
     "dct3d_plane_to_wire": [_P, _P, _I, _I, _P],
     "dct3d_wire_to_plane": [_P, _P, _I, _I, _P],
+    "dct3d_deflate": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 

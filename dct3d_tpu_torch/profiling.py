@@ -55,6 +55,11 @@ class StageTimer:
                 self.bytes[name] += nbytes
                 self.calls[name] += 1
 
+    def add_bytes(self, name: str, nbytes: int) -> None:
+        """Count bytes to a stage that learns its size only inside it."""
+        with self._lock:
+            self.bytes[name] += nbytes
+
     def as_dict(self) -> dict:
         with self._lock:
             return {

@@ -20,7 +20,7 @@ from dct3d_tpu_torch import (
 )
 from dct3d_tpu_torch.codec import entropy, framing, transform
 from dct3d_tpu_torch.ops import (
-    bitpack, dct, exc_pack, expgolomb, group_pack, relayout, splice,
+    bitpack, dct, deflate, exc_pack, expgolomb, group_pack, relayout, splice,
 )
 
 torch.set_num_threads(2)
@@ -429,10 +429,12 @@ def test_turbo_on_card_equals_cpu(dev):
 
 def test_cli_round_trip_on_card_equals_cpu(dev, tmp_path):
     """`python -m dct3d_tpu_torch encode/decode` with default flags on the
-    card: the indexed container equals the --device cpu one byte for byte,
-    decode needs no frame count, pixels within 1 LSB of the CPU's on < 1%,
-    and the main path's kernels launched."""
+    card: the indexed container carries the --device cpu one's payload and
+    index bit ends, its DEFLATE written on the card (its sync offsets good
+    for parallel_inflate), decode needs no frame count, pixels within 1 LSB
+    of the CPU's on < 1%, and the main path's kernels launched."""
     from dct3d_tpu_torch import cli
+    from dct3d_tpu_torch.parallel import multihost
 
     clip = synthetic_video(24, 48, 72, seed=8)
     src = str(tmp_path / "src.raw")
@@ -444,9 +446,16 @@ def test_cli_round_trip_on_card_equals_cpu(dev, tmp_path):
         assert cli.main(["encode", src, enc, "72", "48", "--device", d]) == 0
         assert cli.main(["decode", enc, dec, "72", "48", "--device", d]) == 0
         out[d] = (open(enc, "rb").read(), np.fromfile(dec, np.uint8), dict(kernels.LAUNCHES))
-    assert out["cuda"][0] == out["cpu"][0] and out["cuda"][0][:4] == b"D3MH"
+    card, cpu = (multihost.split_members(out[d][0]) for d in ("cuda", "cpu"))
+    assert out["cuda"][0][:4] == b"D3MH" and [m[:1] + m[2:] for m in card] == \
+        [m[:1] + m[2:] for m in cpu]
+    assert zlib.decompress(card[0][1]) == zlib.decompress(cpu[0][1])
+    assert multihost.parse_index(card[1][1]) == multihost.parse_index(cpu[1][1])
+    syncs = multihost.parse_index_syncs(card[1][1])
+    assert entropy.parallel_inflate(card[0][1], syncs) == zlib.decompress(card[0][1])
     assert all(out["cuda"][2].get(k, 0) > 0 for k in (
-        "frames_to_cubes", "group_bits", "group_pack_values", "splice", "cubes_to_frames"))
+        "frames_to_cubes", "group_bits", "group_pack_values", "splice", "cubes_to_frames",
+        "deflate"))
     assert not any(out["cpu"][2].values())
     d = np.abs(out["cuda"][1].astype(np.int16) - out["cpu"][1])
     assert out["cuda"][1].size == clip.size and d.max() <= 1 and (d > 0).mean() < 0.01
@@ -576,3 +585,143 @@ def test_sharded_on_card_equals_single_device(dev, blocks):
     tdata = turbo.TurboShardedEncoder(w, h, mesh, cfg).push(clip)
     assert tdata == encode_turbo_video(clip, cfg, ctx)
     np.testing.assert_array_equal(turbo.TurboShardedDecoder(w, h, mesh, cfg).decode(tdata), out)
+
+
+def _deflate_input(name: str) -> np.ndarray:
+    rng = np.random.default_rng(13)
+    if name == "empty":
+        return np.zeros(0, np.uint8)
+    if name in ("one", "three"):
+        return np.arange(1, 2 if name == "one" else 4, dtype=np.uint8)
+    if name.startswith("run"):
+        return np.full(int(name[3:]), 0xFF, np.uint8)
+    if name == "far":
+        half = rng.integers(0, 256, 32768, dtype=np.uint8)
+        return np.concatenate([half, half, half[:1000]])
+    if name == "random":
+        return rng.integers(0, 256, 70_000, dtype=np.uint8)
+    clip = (synthetic_video(16, 128, 512, seed=4) if name == "stream" else
+            np.repeat(np.repeat(synthetic_video(16, 16, 64, seed=5) & 0xE0, 8, 1), 8, 2))
+    raw = np.frombuffer(zlib.decompress(encode_video(clip, device="cpu")), np.uint8)
+    return raw[: 256 * 1024]
+
+
+@pytest.mark.parametrize("level", [0, 1, 6, 9])
+@pytest.mark.parametrize("name", ["empty", "one", "three", "run258", "run259", "far",
+                                  "random", "stream", "blocks"])
+def test_deflate_kernels_equal_plain(dev, name, level):
+    """ops/deflate.py on the card equals its plain version byte for byte
+    (inputs up to 256 KiB, in a buffer with a partial byte and slack after
+    the GOP), with the adler32 sums, the bit count and the partial byte in
+    its record; the span inflates to the input."""
+    x = _deflate_input(name)
+    rng = np.random.default_rng(len(x))
+    buf = np.concatenate([x, rng.integers(0, 256, 64, dtype=np.uint8)])
+    bits = 8 * len(x) + 5
+    kernels.LAUNCHES.clear()
+    out, info = deflate.deflate(torch.from_numpy(buf).to(dev),
+                                torch.tensor(bits, dtype=torch.int64, device=dev), level)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["deflate"] == 1
+    info = info.cpu().tolist()
+    span = out[: info[deflate.I_OUT_BYTES]].cpu().numpy()
+    want, s1, s2 = deflate.deflate_plain(x, level)
+    assert np.array_equal(span, want)
+    assert info[: deflate.I_TAIL + 1] == [bits, len(want), s1, s2, int(buf[len(x)])]
+    d = zlib.decompressobj(-zlib.MAX_WBITS)
+    assert d.decompress(span.tobytes()) + d.flush() == x.tobytes()
+
+
+def test_deflate_full_1080p_gops_round_trip(dev):
+    """Two 1080p GOPs of the bench clip, as the encode step leaves them on
+    the card (the second after the first's carry): each span inflates to
+    its GOP's bytes, one workspace reused."""
+    rng = np.random.default_rng(12345)
+    x, y = np.arange(1920), np.arange(1080)[:, None]
+    clip = np.stack([(rng.integers(0, 16, (1080, 1920)) ^ ((x + y + k) & 0xFF)).astype(np.uint8)
+                     for k in range(16)])
+    ctx = TransformContext(CodecConfig(), dev)
+    code = torch.zeros((), dtype=torch.int64, device=dev)
+    carry = (code, code.clone())
+    ws = None
+    for g in range(2):
+        step = transform.encode_step(torch.from_numpy(clip[8 * g : 8 * g + 8]).to(dev), ctx,
+                                     *carry)
+        carry = (step.carry_code, step.carry_bits)
+        ws = ws or deflate.Workspace(step.packed.numel(), dev)
+        out, info = deflate.deflate(step.packed, step.total_bits, 9, ws)
+        torch.cuda.synchronize()
+        n = int(step.total_bits) // 8
+        span = out[: int(info[deflate.I_OUT_BYTES])].cpu().numpy().tobytes()
+        raw = step.packed[:n].cpu().numpy().tobytes()
+        d = zlib.decompressobj(-zlib.MAX_WBITS)
+        assert d.decompress(span) + d.flush() == raw and len(span) < n // 3
+
+
+def test_device_sink_container_on_card(dev, monkeypatch):
+    """A StreamingEncoder container made on the card (deflate_workers -1)
+    carries the payload of the card's serial-sink stream and decodes with
+    decode_auto to the frames of the parallel zlib sink's container of the
+    same payload, in at most 1.005 times its bytes; one DEFLATE launch and
+    one ``deflate`` stage a GOP, and zlib's compressor never runs."""
+    from dct3d_tpu_torch import decode_auto
+    from dct3d_tpu_torch.parallel import multihost
+
+    clip = synthetic_video(48, 96, 128, seed=6)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("zlib's compressor ran on the card's path")
+
+    kernels.LAUNCHES.clear()
+    enc = StreamingEncoder(128, 96, CodecConfig(deflate_workers=-1), device=dev)
+    with monkeypatch.context() as m:
+        m.setattr(zlib, "compressobj", refuse)
+        m.setattr(zlib, "compress", refuse)
+        stream = enc.push(clip) + enc.finish()
+    assert kernels.LAUNCHES["deflate"] == 6 and enc.timer.calls["deflate"] == 6
+    assert isinstance(enc.sink, entropy.DeviceDeflateSink)
+    payload = zlib.decompress(stream)
+    assert payload == zlib.decompress(encode_video(clip, device=dev))
+    # the parallel zlib sink's stream of the same GOPs
+    raw = np.frombuffer(payload + bytes(8), np.uint8)
+    zsink, parts, done = entropy.ParallelDeflateSink(9, 2), [], 0
+    for end in enc.gop_bit_ends:
+        zsink.gop_boundary()
+        parts.append(zsink.push_packed(raw[done // 8 :].copy(), end - done // 8 * 8))
+        done = end
+    zstream = b"".join(parts) + zsink.finish()
+    zsink.close()
+    assert zlib.decompress(zstream) == payload
+    data = multihost._member(stream, 48) + multihost.make_index_member(
+        enc.gop_bit_ends, enc.gop_sync_offsets)
+    zdata = multihost._member(zstream, 48) + multihost.make_index_member(
+        enc.gop_bit_ends, zsink.sync_offsets())
+    assert len(data) <= 1.005 * len(zdata)
+    np.testing.assert_array_equal(decode_auto(data, 128, 96, device=dev),
+                                  decode_auto(zdata, 128, 96, device=dev))
+
+
+def test_device_sink_counts_stages_per_gop(dev):
+    """One ``deflate`` and one ``deflate_out`` stage a GOP, none on finish,
+    with the GOP's bytes in and the span's bytes out; the stream inflates to
+    the GOPs' bytes and the final byte."""
+    raw = _deflate_input("stream")[: 96 * 1024]
+    buf = np.concatenate([raw, np.zeros(8, np.uint8)])
+    ends = [8 * 20000 + 3, 8 * 61000 + 6, 8 * len(raw) + 1]
+    sink, spans, done = entropy.DeviceDeflateSink(6), [], 0
+    for end in ends:
+        a = done // 8
+        sink.gop_boundary()
+        got, total = sink.push_device(torch.from_numpy(buf[a:].copy()).to(dev),
+                                      torch.tensor(end - 8 * a, device=dev))
+        assert total == end - 8 * a
+        spans.append(got)
+        done = end
+    data = b"".join(spans) + sink.finish()
+    sink.close()
+    assert sink.timer.calls["deflate"] == 3 and sink.timer.calls["deflate_out"] == 3
+    assert sink.timer.bytes["deflate"] == sum((e - d // 8 * 8) // 8 for e, d in
+                                              zip(ends, [0] + ends[:-1]))
+    assert sink.timer.bytes["deflate_out"] == sum(map(len, spans)) - 2  # the header is the sink's
+    assert zlib.decompress(data)[: len(raw)] == raw.tobytes()
+    assert entropy.parallel_inflate(data, sink.sync_offsets()) == zlib.decompress(data)
