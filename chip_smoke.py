@@ -39,9 +39,11 @@ and decode of the bench clip (1920x1080, 64 frames) at 8x8x8 cubes, and the
               most 1.005 times it: DEVICE_DEFLATE_RATIO, also where later
               phases hold a device-sink stream to a JAX package's bpp);
   6. turbo    encode_turbo_video, decode_turbo_container and
-              decode_turbo_range on the zlib-6 wire: pixels identical to the
+              decode_turbo_range on the zlib-6 wire (each plane deflated on
+              the card, one launch a GOP; bpp held as a device-sink
+              stream's): pixels identical to the
               reference decode, the range equal to the slice, GOP 0's member
-              against the plain CPU path, the container's content against
+              streams against the plain CPU path, the container's content against
               the JAX package's (constants below), the zstd wire where the
               zstandard module imports, and the per-GOP reference-profile
               fallback at quant 0 on a small clip;
@@ -131,12 +133,16 @@ and decode of the bench clip (1920x1080, 64 frames) at 8x8x8 cubes, and the
               torch.profiler's device time), and end-to-end fps,
               alternated.
 
- 17. deflate  GOP 0's device bytes through the DEFLATE kernels: the span
-              byte-equal to the plain version's, its adler32 sums right,
-              inflating to the GOP's bytes; CUDA-event time beside host
-              zlib-9 on one thread (the yardstick) and the plain version
-              on the CPU, each kernel's device time (torch.profiler), and
-              the span's size against zlib-9's.
+ 17. deflate  GOP 0's device bytes at zlib level 9, and GOP 0's turbo
+              wire plane (8,294,400 bytes) at TURBO_CFG's level 6, through
+              the DEFLATE kernels: the span byte-equal to the plain
+              version's, its adler32 sums right, inflating to the input;
+              CUDA-event time beside host zlib at the same level on one
+              thread (the yardstick) and the plain version on the CPU,
+              each kernel's device time (torch.profiler), and the span's
+              size against zlib's; TurboEncoder's zlib stream of the plane
+              equal to the plain span's, framed with zlib's header, and
+              inflating to the plane.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after; every kernel of the path must have launched, and on the 4x4x4
@@ -552,21 +558,18 @@ def phase_kernels(gop0: np.ndarray, ctx, card: str) -> list[dict]:
     return rows
 
 
-def phase_deflate(gop0: np.ndarray, ctx, card: str) -> None:
-    """GOP 0's device bytes (encode_step, as the encoder's drainer gets
-    them) through ops/deflate.py at the configuration's zlib level: the
-    span byte-equal to the plain version's on the CPU, inflating to the
-    GOP's bytes, its adler32 sums right; CUDA-event time beside host
-    zlib-9 on one thread (the yardstick) and the plain version's time;
-    each kernel's device time; the span's size against zlib-9's."""
-    level = ctx.cfg.zlib_level
-    zero = torch.zeros((), dtype=torch.int64, device="cuda")
-    step = transform.encode_step(torch.from_numpy(gop0).to("cuda"), ctx, zero, zero.clone())
-    packed, total_bits = step.packed, step.total_bits
-    n = int(total_bits) // 8
-    raw = packed[:n].cpu().numpy()
-    ws = deflate.Workspace(packed.numel(), packed.device)
-    out, info = deflate.deflate(packed, total_bits, level, ws)
+def deflate_case(card: str, data: torch.Tensor, nbits: torch.Tensor, level: int,
+                 **extra) -> tuple[np.ndarray, int, int]:
+    """One input through ops/deflate.py at ``level``: the span byte-equal
+    to the plain version's on the CPU, inflating to the input, its adler32
+    sums right; CUDA-event time beside host zlib at the same level on one
+    thread (the yardstick) and the plain version's time; each kernel's
+    device time; the span's size against zlib's.  Returns the span and
+    its sums."""
+    n = int(nbits) // 8
+    raw = data[:n].cpu().numpy()
+    ws = deflate.Workspace(data.numel(), data.device)
+    out, info = deflate.deflate(data, nbits, level, ws)
     torch.cuda.synchronize()
     info = info.cpu().tolist()
     span = out[: info[deflate.I_OUT_BYTES]].cpu().numpy()
@@ -578,22 +581,57 @@ def phase_deflate(gop0: np.ndarray, ctx, card: str) -> None:
           and deflate.adler32_of(s1, s2, n) == zlib.adler32(raw.tobytes()),
           "the DEFLATE kernels' adler32 sums are wrong")
     check(zlib.decompressobj(-zlib.MAX_WBITS).decompress(span.tobytes()) == raw.tobytes(),
-          "the DEFLATE span does not inflate to the GOP's bytes")
-    ms = median_ms(lambda: deflate.deflate(packed, total_bits, level, ws))
+          "the DEFLATE span does not inflate to the input's bytes")
+    ms = median_ms(lambda: deflate.deflate(data, nbits, level, ws))
     zlib_ms = []
     for _ in range(3):
         t0 = time.perf_counter()
-        co = zlib.compressobj(9, zlib.DEFLATED, -zlib.MAX_WBITS)
+        co = zlib.compressobj(level, zlib.DEFLATED, -zlib.MAX_WBITS)
         zdata = co.compress(raw.tobytes()) + co.flush(zlib.Z_FULL_FLUSH)
         zlib_ms.append((time.perf_counter() - t0) * 1e3)
     zlib_ms = statistics.median(zlib_ms)
-    dev = profiled_us(lambda: deflate.deflate(packed, total_bits, level, ws), reps=5)
-    emit(phase="deflate", card=card, level=level, gop_bytes=n, span_bytes=len(span),
-         zlib9_bytes=len(zdata), size_vs_zlib9=len(span) / len(zdata),
+    dev = profiled_us(lambda: deflate.deflate(data, nbits, level, ws), reps=5)
+    z = f"zlib{level}"
+    emit(phase="deflate", card=card, level=level, **extra, input_bytes=n,
+         span_bytes=len(span), **{f"{z}_bytes": len(zdata)},
+         **{f"size_vs_{z}": len(span) / len(zdata)},
          symbols=info[deflate.I_SYMBOLS], blocks=info[deflate.I_BLOCKS],
-         event_ms=ms, zlib9_ms=zlib_ms, plain_ms=plain_ms,
-         zlib9_over_kernels=zlib_ms / ms, plain_over_kernels=plain_ms / ms,
+         event_ms=ms, **{f"{z}_ms": zlib_ms}, plain_ms=plain_ms,
+         **{f"{z}_over_kernels": zlib_ms / ms}, plain_over_kernels=plain_ms / ms,
          device_us=dev["us"], device_top=dev["top"])
+    return span, s1, s2
+
+
+def phase_deflate(gop0: np.ndarray, ctx, card: str) -> None:
+    """deflate_case on GOP 0's device bytes (encode_step, as the encoder's
+    drainer gets them) at the configuration's zlib level, and on GOP 0's
+    turbo wire plane (encode_step_turbo, as TurboEncoder's drain workers
+    get it) at TURBO_CFG's level; TurboEncoder's own framing of that plane
+    (``_deflate_plane``) equal to the plain span's zlib stream, with
+    zlib.compress's header, and inflating to the plane."""
+    zero = torch.zeros((), dtype=torch.int64, device="cuda")
+    frames = torch.from_numpy(gop0).to("cuda")
+    step = transform.encode_step(frames, ctx, zero, zero.clone())
+    deflate_case(card, step.packed, step.total_bits, ctx.cfg.zlib_level, input="gop_bytes")
+
+    tcfg = port.CodecConfig(**TURBO_CFG)
+    plane = turbo.encode_step_turbo(frames, port.TransformContext(tcfg, "cuda"),
+                                    wire=True).plane
+    flat = plane.reshape(-1)
+    n = flat.numel()
+    level = tcfg.zlib_level
+    span, s1, s2 = deflate_case(card, flat, torch.tensor(8 * n, device="cuda"), level,
+                                input="turbo_wire_plane")
+    enc = turbo.TurboEncoder(W, H, tcfg, device="cuda")
+    stream = enc._deflate_plane(plane)
+    enc.finish()
+    raw = flat.cpu().numpy().tobytes()
+    check(stream == deflate.zlib_stream(span.tobytes(), level, s1, s2, n)
+          and stream[:2] == zlib.compress(raw[:64], level)[:2]
+          and zlib.decompress(stream) == raw,
+          "TurboEncoder's plane stream is not the plain span's zlib stream")
+    emit(phase="deflate", input="turbo_wire_plane", encoder_stream_equals_plain=True,
+         stream_bytes=len(stream), deflate_stage_calls=enc.timer.calls.get("deflate"))
 
 
 def phase_turbo_kernels(gop0: np.ndarray, ctx, card: str) -> list[dict]:
@@ -776,11 +814,25 @@ def container_digest(data: bytes) -> str:
     return h.hexdigest()
 
 
+def member_streams(member: bytes) -> tuple:
+    """A container's first member: its frame count, type and (for a turbo
+    member) its four streams inflated, the card's plane stream being valid
+    zlib but not zlib's bytes."""
+    t, payload, mtype = multihost.split_members(member)[0]
+    if mtype != turbo.MEMBER_TURBO:
+        return t, mtype, payload
+    o, raw = 16, []
+    for n in struct.unpack_from("<IIII", payload, 0):
+        raw.append(zlib.decompress(payload[o : o + n]))
+        o += n
+    return (t, mtype, *raw)
+
+
 def turbo_gop0(gop0: np.ndarray, ctx, data: bytes) -> dict:
     """GOP 0: turbo ints equal quantize_step's in pair order on the card;
-    the card's member equals the one the plain CPU versions build from the
-    card's ints; against the whole plain CPU path from the same frames,
-    every differing int lies within 1e-3 of a rounding tie."""
+    the card's member carries the streams the plain CPU versions build
+    from the card's ints; against the whole plain CPU path from the same
+    frames, every differing int lies within 1e-3 of a rounding tie."""
     frames = torch.from_numpy(gop0).to(ctx.device)
     cubes, sums = relayout.frames_to_cubes(frames)
     qp = transform._quantize(cubes, sums, ctx.enc_t_pair, ctx.cfg)
@@ -794,7 +846,8 @@ def turbo_gop0(gop0: np.ndarray, ctx, data: bytes) -> dict:
         gop0, turbo._member_payload(gop.plane.numpy(), gop.dc.numpy(), idx, val,
                                     ctx.cfg, wire=True),
         idx.size, 8, turbo.MEMBER_TURBO, ctx.cfg, ctx, lambda: None)
-    check(plain == card_member,
+    card_streams = member_streams(card_member)
+    check(member_streams(plain) == card_streams,
           "GOP 0's member differs from the plain versions' on the same ints")
     cpu_ctx = port.TransformContext(ctx.cfg, "cpu")
     cpu_member = port.encode_turbo_video(gop0, ctx.cfg, cpu_ctx)
@@ -805,10 +858,11 @@ def turbo_gop0(gop0: np.ndarray, ctx, data: bytes) -> dict:
     diff = qp.cpu() != q_cpu
     worst = float(((x.abs() % 1) - 0.5).abs()[diff].max()) if diff.any() else 0.0
     check(worst < 1e-3, f"card and CPU ints differ {worst} from a rounding tie")
-    check((cpu_member == card_member) == (not diff.any()),
+    same = member_streams(cpu_member) == card_streams
+    check(same == (not diff.any()),
           "GOP 0's member vs the plain CPU path disagrees with their ints")
-    return {"gop0_member_equals_plain_on_card_ints": True,
-            "gop0_member_equals_cpu_path": cpu_member == card_member,
+    return {"gop0_streams_equal_plain_on_card_ints": True,
+            "gop0_streams_equal_cpu_path": same,
             "gop0_ints_differing_from_cpu_path": int(diff.sum()),
             "gop0_worst_distance_from_tie": worst}
 
@@ -1113,7 +1167,7 @@ def phase_blocks(clip: np.ndarray, smi: str) -> tuple[dict[str, int], np.ndarray
     emit(phase="blocks", run="turbo", card=smi, bytes=len(tdata), launches=got, bpp=tbpp,
          pixels_equal_reference=True, range_equals_slice=True,
          **content_vs_jax("turbo", container_digest(tdata), tbpp, padded, ctx, q,
-                          device_sink=False))
+                          device_sink=True))
 
     tenc_s = best_of_3(tenc_s, lambda: port.encode_turbo_video(padded, tcfg, tctx))
     tdec_s = best_of_3(tdec_s, lambda: port.decode_turbo_container(tdata, pw, ph, tcfg, tctx))
@@ -1272,7 +1326,7 @@ def phase_rgb(smi: str) -> tuple[np.ndarray, np.ndarray]:
         bpp = len(data) * 8 / (W * H * RGB_T)
         check(container_digest(data) == want["digest"],
               f"{name}: the container's content differs from the JAX package's")
-        check_bpp(bpp, want["bpp"], f"{name} vs JAX", device_sink=name == "rgb")
+        check_bpp(bpp, want["bpp"], f"{name} vs JAX", device_sink=True)
         content[f"{name}_bpp"] = bpp
     members = multihost.split_members(box)
     check([m[2] for m in members] == [1, 4, 2, 4, 3, 4], "not three indexed channel members")
@@ -1602,8 +1656,8 @@ def phase_mesh(clip: np.ndarray, lib: dict, smi: str) -> None:
     tout = turbo.TurboShardedDecoder(W, H, m23, cfg_t).decode(tdata)
     mesh_tdec_s = time.perf_counter() - t0
     launches["turbo_2x3"] = path_launches("mesh turbo", TURBO8, ("group_pack_values", "splice"))
-    check(container_digest(tdata) == JAX_TURBO_DIGEST and tdata == lib["tdata"],
-          "the sharded turbo container differs from encode_turbo_video's")
+    check(container_digest(tdata) == JAX_TURBO_DIGEST == container_digest(lib["tdata"]),
+          "the sharded turbo container's streams differ from encode_turbo_video's")
     check(np.array_equal(tout, lib["out_par"]), "the sharded turbo decode differs")
 
     # 4x4x4 on (2, 3): whole groups (K2) and the padded portrait (K5).
@@ -2040,7 +2094,9 @@ def main() -> None:
     tbpp = port.bits_per_pixel(len(tdata), W, H, T)
     check(container_digest(tdata) == JAX_TURBO_DIGEST,
           "the turbo container's streams differ from the JAX package's")
-    check(abs(tbpp - JAX_TURBO_BPP) <= 0.0005, f"turbo bpp {tbpp} vs JAX {JAX_TURBO_BPP}")
+    check_bpp(tbpp, JAX_TURBO_BPP, "turbo vs JAX", device_sink=True)
+    check(tlaunches.get("deflate", 0) == T // 8, "the turbo encode's planes did not each "
+          "take the card's DEFLATE")
     emit(phase="turbo", bytes=len(tdata), launches=tlaunches,
          pixels_equal_reference=True, range_equals_slice=True,
          digest_equals_jax=True, bpp=tbpp, jax_bpp=JAX_TURBO_BPP,

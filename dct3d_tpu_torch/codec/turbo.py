@@ -192,9 +192,14 @@ def _expand_pair(lidx, vals, counts, cube: int):
     return idx[order], val[order]
 
 
+def _zstd_wire(cfg: CodecConfig) -> bool:
+    """The wire is zstd: configured so and the zstandard module imports."""
+    return cfg.turbo_codec == "zstd" and _zstd is not None
+
+
 def _compress(data, cfg: CodecConfig) -> bytes:
     """One wire stream: zstd when configured and installed, else zlib."""
-    if cfg.turbo_codec == "zstd" and _zstd is not None:
+    if _zstd_wire(cfg):
         # The checksum gives the zstd wire the bit-flip detection that
         # zlib's adler32 gives the zlib wire.
         return _zstd.ZstdCompressor(
@@ -235,10 +240,17 @@ def _member_streams(plane: np.ndarray, dc: np.ndarray, idx: np.ndarray,
     wire=False: it is the flat transport plane and is transposed here."""
     if wire:
         wire_plane = np.ascontiguousarray(plane)
-        cubes = wire_plane.shape[1]
     else:
-        cubes = plane.size * 2 // cube
-        wire_plane = np.ascontiguousarray(plane.reshape(cubes, cube // 2).T)
+        wire_plane = np.ascontiguousarray(
+            plane.reshape(plane.size * 2 // cube, cube // 2).T)
+    return [wire_plane.reshape(-1), *_side_streams(dc, idx, val, cube)]
+
+
+def _side_streams(dc: np.ndarray, idx: np.ndarray, val: np.ndarray,
+                  cube: int) -> list[np.ndarray]:
+    """_member_streams' last three: DC deltas, exception index deltas and
+    exception values, before compression."""
+    cubes = np.size(dc)
     idx = np.asarray(idx, np.int64)
     j = idx % cube
     c = idx // cube
@@ -252,17 +264,23 @@ def _member_streams(plane: np.ndarray, dc: np.ndarray, idx: np.ndarray,
     didx = np.diff(i2, prepend=np.int64(0)).astype(np.int32)
     dc = np.asarray(dc, np.int16)
     ddc = np.diff(dc, prepend=np.int16(0)).astype(np.int16)  # |dc| <= 5771
-    return [wire_plane.reshape(-1), ddc, didx,
-            np.ascontiguousarray(np.asarray(val)[order], np.int16)]
+    return [ddc, didx, np.ascontiguousarray(np.asarray(val)[order], np.int16)]
 
 
-def _member_payload(plane: np.ndarray, dc: np.ndarray, idx: np.ndarray,
-                    val: np.ndarray, cfg: CodecConfig,
-                    wire: bool = False) -> bytes:
+def _member_payload(plane: np.ndarray | None, dc: np.ndarray,
+                    idx: np.ndarray, val: np.ndarray, cfg: CodecConfig,
+                    wire: bool = False,
+                    plane_stream: bytes | None = None) -> bytes:
     """Member payload: the four streams of _member_streams, each compressed
-    and length-prefixed."""
-    parts = [_compress(s, cfg) for s in _member_streams(
-        plane, dc, idx, val, cfg.cube_size, wire)]
+    and length-prefixed.  Given ``plane_stream``, the plane's finished
+    stream (the card's DEFLATE, TurboEncoder), that ships as it is in the
+    plane's place and ``plane`` is not read."""
+    if plane_stream is None:
+        parts = [_compress(s, cfg) for s in _member_streams(
+            plane, dc, idx, val, cfg.cube_size, wire)]
+    else:
+        parts = [plane_stream] + [_compress(s, cfg) for s in _side_streams(
+            dc, idx, val, cfg.cube_size)]
     head = struct.pack("<IIII", *(len(p) for p in parts))
     return head + b"".join(parts)
 
@@ -327,6 +345,16 @@ class TurboEncoder:
     ``device_wait``, ``d2h`` and ``member`` (expand and compress) summed
     over the drain workers.
 
+    On a card, with ``deflate_workers != 0`` and a zlib wire, the worker
+    deflates the GOP's wire plane with the card's DEFLATE (ops/deflate.py)
+    on its stream and reads back only the compressed span, which it frames
+    as the plane's zlib stream: valid zlib, but not zlib's bytes.  Each
+    worker keeps its own workspace until ``finish()``.  The stages
+    ``deflate`` (launch, waits and copy; the plane's bytes in) and
+    ``deflate_out`` (the span's copy; its bytes) count that route.  CPU
+    tensors, ``deflate_workers=0`` and the zstd wire compress the plane
+    with ``_compress`` on the host, as the JAX package does.
+
     Usage:
         enc = TurboEncoder(width, height, cfg, device="cuda")
         for batch in frame_batches:        # (T, H, W) uint8, T % gop == 0
@@ -362,21 +390,25 @@ class TurboEncoder:
         )
         self._out: collections.deque = collections.deque()
         self._warned_fallback = False
-        self._local = threading.local()  # each worker's copy stream
+        self._local = threading.local()  # each worker's stream and DEFLATE state
+        self._card_deflate = (self.device.type == "cuda"
+                              and self.cfg.deflate_workers != 0
+                              and not _zstd_wire(self.cfg))
 
     def _warn_fallback(self) -> None:
         self._warned_fallback = _warn_fallback_once(self._warned_fallback)
 
     def _readback(self, gop: TurboGOP, frames_dev: torch.Tensor,
-                  done) -> list[np.ndarray]:
-        """Worker: (plane, dc, lidx, vals, counts) on the host, after the
-        overflow retry if one is needed.  Holds the GOP's device tensors
-        until their copies are done."""
+                  done) -> tuple[bytes | None, list]:
+        """Worker: the plane's zlib stream on the card's DEFLATE route (else
+        None), and (plane, dc, lidx, vals, counts) on the host, after the
+        overflow retry if one is needed; the plane is None on that route.
+        Holds the GOP's device tensors until their copies are done."""
         if done is None:
             if bool(gop.overflow):
                 gop = encode_step_turbo(frames_dev, self.ctx, _RETRY_SLOTS,
                                         wire=True)
-            return [t.numpy() for t in gop[:5]]
+            return None, [t.numpy() for t in gop[:5]]
         stream = getattr(self._local, "stream", None)
         if stream is None:
             stream = self._local.stream = torch.cuda.Stream(self.device)
@@ -387,23 +419,61 @@ class TurboEncoder:
             if overflow:
                 gop = encode_step_turbo(frames_dev, self.ctx, _RETRY_SLOTS,
                                         wire=True)
+            plane_stream = (self._deflate_plane(gop.plane) if self._card_deflate
+                            else None)
+            tensors = gop[1:5] if plane_stream else gop[:5]
             with self.timer.stage("d2h", sum(t.numel() * t.element_size()
-                                             for t in gop[:5])):
+                                             for t in tensors)):
                 host = []
-                for t in gop[:5]:
+                for t in tensors:
                     h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                     h.copy_(t, non_blocking=True)
                     host.append(h)
                 stream.synchronize()
-        return [h.numpy() for h in host]
+        host = [h.numpy() for h in host]
+        return plane_stream, [None, *host] if plane_stream else host
+
+    def _deflate_plane(self, plane: torch.Tensor) -> bytes:
+        """Worker, on its stream: the (cube/2, cubes) wire plane's zlib
+        stream from the card's DEFLATE.  The host waits once for the
+        span's length and sums, once for the span."""
+        from ..ops import deflate as dev_deflate
+
+        flat = plane.reshape(-1)
+        n = flat.numel()
+        level = self.cfg.zlib_level
+        if level == zlib.Z_DEFAULT_COMPRESSION:  # zlib.compress reads it as 6
+            level = 6
+        loc = self._local
+        stream = torch.cuda.current_stream(flat.device)
+        with self.timer.stage("deflate", n):
+            if getattr(loc, "ws", None) is None:  # one plane size an encoder
+                loc.ws = dev_deflate.Workspace(n, flat.device)
+                loc.nbits = torch.tensor(8 * n, dtype=torch.int64, device=flat.device)
+                loc.info = torch.empty(dev_deflate.INFO_WORDS, dtype=torch.int64,
+                                       pin_memory=True)
+                loc.span = torch.empty(dev_deflate.out_capacity(n), dtype=torch.uint8,
+                                       pin_memory=True)
+            out, info = dev_deflate.deflate(flat, loc.nbits, level, loc.ws)
+            loc.info.copy_(info, non_blocking=True)
+            stream.synchronize()
+            nout, s1, s2 = (int(loc.info[k]) for k in (
+                dev_deflate.I_OUT_BYTES, dev_deflate.I_S1, dev_deflate.I_S2))
+            with self.timer.stage("deflate_out", nout):
+                loc.span[:nout].copy_(out[:nout], non_blocking=True)
+                stream.synchronize()
+                span = loc.span[:nout].numpy().tobytes()
+        return dev_deflate.zlib_stream(span, level, s1, s2, n)
 
     def _drain_gop(self, gop: TurboGOP, frames_dev: torch.Tensor, done,
                    t: int, raw: np.ndarray) -> bytes:
-        host = self._readback(gop, frames_dev, done)
+        plane_stream, host = self._readback(gop, frames_dev, done)
         plane, dc, lidx, vals, counts = host
-        with self.timer.stage("member", sum(h.nbytes for h in host)):
+        with self.timer.stage("member", len(plane_stream or b"") + sum(
+                h.nbytes for h in host if h is not None)):
             idx, val = _expand_pair(lidx, vals, counts, self.cfg.cube_size)
-            payload = _member_payload(plane, dc, idx, val, self.cfg, wire=True)
+            payload = _member_payload(plane, dc, idx, val, self.cfg, wire=True,
+                                      plane_stream=plane_stream)
             return _pick_member(raw, payload, idx.size, t, self.member_type,
                                 self.cfg, self.ctx, self._warn_fallback)
 
@@ -452,6 +522,7 @@ class TurboEncoder:
     def finish(self) -> bytes:
         out = self.drain()
         self._drainer.shutdown(wait=True)
+        self._local = threading.local()  # frees the workers' DEFLATE workspaces
         return out
 
 

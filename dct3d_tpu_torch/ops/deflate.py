@@ -4,7 +4,9 @@ and its plain version.
 The kernels replace no TPU kernel: the JAX package deflates on the host
 (``dct3d_tpu.codec.entropy``'s zlib sinks).  They take the host zlib pool
 off the reference encode: ``codec/entropy.DeviceDeflateSink`` launches them
-on each GOP's device bytes and copies back only the compressed span.
+on each GOP's device bytes and copies back only the compressed span.  The
+turbo drain (``codec/turbo.TurboEncoder``) launches them on each GOP's
+nibble wire plane and frames the span as a zlib stream (``zlib_stream``).
 
 What one call writes, for a GOP of ``n = total_bits // 8`` whole bytes:
 raw DEFLATE blocks that refer to nothing before the GOP's first byte, then
@@ -59,6 +61,8 @@ written from the description above; CUDA tensors launch the kernels
 """
 
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 import torch
@@ -604,6 +608,21 @@ def adler32_of(s1: int, s2: int, n: int) -> int:
     return ((1 + s1) % 65521) | (((n + s2) % 65521) << 16)
 
 
+def zlib_header(level: int) -> bytes:
+    """The two bytes ``zlib.compress`` writes at ``level`` (0-9): CMF 0x78,
+    then FLEVEL and the check bits."""
+    flevel = 0 if level < 2 else 1 if level < 6 else 2 if level == 6 else 3
+    return bytes([0x78, flevel << 6 | (31 - (0x7800 | flevel << 6) % 31) % 31])
+
+
+def zlib_stream(span: bytes, level: int, s1: int, s2: int, n: int) -> bytes:
+    """One call's span (of ``n`` input bytes, with its stage-6 sums) as a
+    whole zlib stream: ``zlib_header(level)``, the span, an empty final
+    fixed block (``03 00``) and the big-endian adler32."""
+    return (zlib_header(level) + span + b"\x03\x00"
+            + struct.pack(">I", adler32_of(s1, s2, n)))
+
+
 # ----------------------------------------------------------------------------
 # The wrapper
 # ----------------------------------------------------------------------------
@@ -619,7 +638,7 @@ def out_capacity(cap: int) -> int:
 
 class Workspace:
     """The card's scratch for GOPs of up to ``cap`` bytes, kept across
-    calls (one GOP at a time: the sink's drainer is one thread).  The
+    calls (one GOP at a time: one workspace a thread).  The
     chains' buffer later holds the segments' tokens, the matches' buffer
     the compacted symbols."""
 

@@ -8,6 +8,7 @@ ragged (block columns that do not fill a thread block's run of 16);
 chip_smoke.py covers the 1080p shapes of the main path.
 """
 
+import struct
 import zlib
 
 import numpy as np
@@ -15,13 +16,14 @@ import pytest
 import torch
 
 from dct3d_tpu_torch import (
-    CodecConfig, StreamingEncoder, TransformContext, decode_turbo_container,
+    CodecConfig, StreamingEncoder, TransformContext, TurboEncoder, decode_turbo_container,
     decode_video, encode_turbo_video, encode_video, kernels,
 )
-from dct3d_tpu_torch.codec import entropy, framing, transform
+from dct3d_tpu_torch.codec import entropy, framing, transform, turbo
 from dct3d_tpu_torch.ops import (
     bitpack, dct, deflate, exc_pack, expgolomb, group_pack, relayout, splice,
 )
+from dct3d_tpu_torch.parallel import multihost
 
 torch.set_num_threads(2)
 
@@ -412,9 +414,34 @@ def test_wire_kernels_equal_plain(dev, cubes):
     assert torch.equal(back.cpu(), plane)
 
 
+#: the turbo wire of `encode --turbo` on the card: its plane deflated there
+TURBO_CARD = CodecConfig(turbo_codec="zlib", zlib_level=6, deflate_workers=-1)
+
+
+def assert_turbo_members_match(card: bytes, cpu: bytes) -> None:
+    """Member by member: the same member types and frame counts; each turbo
+    member's four length-prefixed streams inflate with zlib.decompress to
+    the CPU member's raw streams (the card's plane stream is valid zlib,
+    not zlib's bytes); any other member equal byte for byte."""
+    a, b = multihost.split_members(card), multihost.split_members(cpu)
+    assert [m[::2] for m in a] == [m[::2] for m in b]
+    for (_, pa, kind), (_, pb, _) in zip(a, b):
+        if kind not in (turbo.MEMBER_TURBO, *turbo.MEMBER_TURBO_RGB):
+            assert pa == pb
+            continue
+        la, lb = struct.unpack_from("<IIII", pa), struct.unpack_from("<IIII", pb)
+        assert 16 + sum(la) == len(pa) and 16 + sum(lb) == len(pb)
+        oa = ob = 16
+        for x, y in zip(la, lb):
+            assert zlib.decompress(pa[oa : oa + x]) == zlib.decompress(pb[ob : ob + y])
+            oa, ob = oa + x, ob + y
+
+
 def test_turbo_on_card_equals_cpu(dev):
     """Turbo container bytes equal the CPU path's; pixels identical to the
-    card's reference-profile decode; K6, K7 and K8 launched."""
+    card's reference-profile decode; K6, K7 and K8 launched.  With the
+    CLI's wire (the plane deflated on the card) the members carry the CPU
+    path's streams and decode to the same pixels, and DEFLATE launched."""
     clip = synthetic_video(24, 48, 72, seed=8)
     kernels.LAUNCHES.clear()
     data = encode_turbo_video(clip, device=dev)
@@ -425,6 +452,72 @@ def test_turbo_on_card_equals_cpu(dev):
     assert data == encode_turbo_video(clip, device="cpu")
     ref = decode_video(encode_video(clip, device=dev), 72, 48, 24, device=dev)
     assert np.array_equal(out, ref)
+    card = encode_turbo_video(clip, TURBO_CARD, device=dev)
+    assert kernels.LAUNCHES["deflate"] > 0
+    assert_turbo_members_match(card, encode_turbo_video(clip, TURBO_CARD, device="cpu"))
+    assert np.array_equal(decode_turbo_container(card, 72, 48, device=dev), out)
+
+
+def test_turbo_parity_on_card_without_deflate_workers(dev):
+    """deflate_workers=0 keeps host zlib on the card: the turbo container
+    equals the CPU path's byte for byte, and DEFLATE never launches."""
+    clip = synthetic_video(24, 48, 72, seed=8)
+    cfg = CodecConfig(turbo_codec="zlib", zlib_level=6, deflate_workers=0)
+    kernels.LAUNCHES.clear()
+    enc = TurboEncoder(72, 48, cfg, device=dev)
+    data = enc.push(clip) + enc.finish()
+    assert data == encode_turbo_video(clip, cfg, device="cpu")
+    assert not kernels.LAUNCHES["deflate"] and "deflate" not in enc.timer.calls
+
+
+def test_turbo_card_deflate_counts_per_gop(dev, monkeypatch):
+    """On the card one DEFLATE launch, one ``deflate`` stage (the plane's
+    bytes in) and one ``deflate_out`` stage a GOP, and host zlib compresses
+    three streams a member, not four; a CPU encode of the same frames
+    counts no ``deflate`` stage and no launch."""
+    clip = synthetic_video(32, 48, 72, seed=8)
+    calls = []
+    compress = zlib.compress
+
+    def counted(data, level=-1):
+        calls.append(len(data))
+        return compress(data, level)
+
+    monkeypatch.setattr(zlib, "compress", counted)
+    for d, gops in ((dev, 4), ("cpu", 0)):
+        kernels.LAUNCHES.clear()
+        calls.clear()
+        enc = TurboEncoder(72, 48, TURBO_CARD, device=d)
+        data = enc.push(clip) + enc.finish()
+        assert kernels.LAUNCHES["deflate"] == gops
+        assert enc.timer.calls.get("deflate", 0) == enc.timer.calls.get("deflate_out", 0) == gops
+        assert enc.timer.bytes.get("deflate", 0) == gops * 8 * 48 * 72 // 2
+        assert len(calls) == (3 if gops else 4) * 4
+        assert [m[2] for m in multihost.split_members(data)] == [turbo.MEMBER_TURBO] * 4
+
+
+def test_turbo_card_members_pass_the_benchmark_reference(dev):
+    """Every member the card writes reads with perfbench/reference.py (its
+    own zlib ``inflate`` of each stream and ``turbo_ints``) to the ints of
+    the member host zlib writes from the card's step (deflate_workers 0;
+    this noisy content has rounding ties where the CPU's ints differ), on
+    content with exceptions in every GOP."""
+    import dataclasses
+
+    from perfbench import reference
+
+    rng = np.random.default_rng(17)
+    clip = (synthetic_video(24, 64, 96, seed=17) ^ rng.integers(0, 64, (24, 64, 96))
+            ).astype(np.uint8)
+    card = multihost.split_members(encode_turbo_video(clip, TURBO_CARD, device=dev))
+    host = multihost.split_members(encode_turbo_video(
+        clip, dataclasses.replace(TURBO_CARD, deflate_workers=0), device=dev))
+    assert [m[2] for m in card] == [turbo.MEMBER_TURBO] * 3
+    for (_, p, _), (_, q, _) in zip(card, host):
+        assert p[16:] != q[16:]
+        got = reference.turbo_ints(p, 64 * 96 * 8 // 512, 512)
+        assert torch.equal(got, reference.turbo_ints(q, 64 * 96 * 8 // 512, 512))
+        assert (got[:, 1:].abs() > 7).any()  # the exception streams are not empty
 
 
 def test_cli_round_trip_on_card_equals_cpu(dev, tmp_path):
@@ -534,8 +627,9 @@ def test_speculative_decode_on_card_equals_cpu(dev, monkeypatch):
 
 def test_rgb_and_checkpoint_on_card_equal_cpu(dev, tmp_path):
     """RGB, turbo-RGB and checkpointed containers written on the card
-    equal the CPU path's bytes; the RGB decodes on the card equal their
-    per-channel decodes on the card."""
+    equal the CPU path's bytes, and turbo-RGB ones with the plane deflated
+    on the card carry its streams member by member; the RGB decodes on the
+    card equal their per-channel decodes on the card."""
     from dct3d_tpu_torch import (
         CheckpointingEncoder, decode_rgb_video, decode_turbo_rgb_video, encode_rgb_video,
         encode_turbo_rgb_video,
@@ -547,12 +641,15 @@ def test_rgb_and_checkpoint_on_card_equal_cpu(dev, tmp_path):
     assert box == encode_rgb_video(rgb, cfg, index=True, device="cpu")
     tbox = encode_turbo_rgb_video(rgb, cfg, device=dev)
     assert tbox == encode_turbo_rgb_video(rgb, cfg, device="cpu")
+    tcard = encode_turbo_rgb_video(rgb, TURBO_CARD, device=dev)
+    assert_turbo_members_match(tcard, encode_turbo_rgb_video(rgb, TURBO_CARD, device="cpu"))
     got = decode_rgb_video(box, 72, 48, cfg, device=dev)
     for c in range(3):
         np.testing.assert_array_equal(
             got[..., c], decode_video(encode_video(rgb[..., c], cfg, device="cpu"), 72, 48, 16,
                                       cfg, device=dev))
     np.testing.assert_array_equal(decode_turbo_rgb_video(tbox, 72, 48, cfg, device=dev), got)
+    np.testing.assert_array_equal(decode_turbo_rgb_video(tcard, 72, 48, cfg, device=dev), got)
     files = []
     for k, d in enumerate((dev, "cpu")):
         p = str(tmp_path / f"{k}.d3v")
@@ -567,7 +664,10 @@ def test_rgb_and_checkpoint_on_card_equal_cpu(dev, tmp_path):
 def test_sharded_on_card_equals_single_device(dev, blocks):
     """A (2, 3) mesh of the one card: the sharded stream (4x4x4: tile
     shards of 5 cubes a GOP, not whole groups, so K5 with the phase
-    pseudo-codeword) and pixels equal one device's, and turbo's too."""
+    pseudo-codeword) and pixels equal one device's, and turbo's too; the
+    sharded turbo encoder keeps host zlib with deflate workers (the same
+    bytes), where one device deflates the plane on the card (the same
+    streams)."""
     from dct3d_tpu_torch.codec import turbo
     from dct3d_tpu_torch.parallel.mesh import make_mesh
     from dct3d_tpu_torch.parallel.sharding import ShardedDecoder, ShardedEncoder
@@ -584,6 +684,10 @@ def test_sharded_on_card_equals_single_device(dev, blocks):
     np.testing.assert_array_equal(out, decode_video(data, w, h, clip.shape[0], cfg, ctx))
     tdata = turbo.TurboShardedEncoder(w, h, mesh, cfg).push(clip)
     assert tdata == encode_turbo_video(clip, cfg, ctx)
+    tcfg = CodecConfig(block_w=blocks, block_h=blocks, block_d=blocks, turbo_codec="zlib",
+                       deflate_workers=-1)
+    assert turbo.TurboShardedEncoder(w, h, mesh, tcfg).push(clip) == tdata
+    assert_turbo_members_match(encode_turbo_video(clip, tcfg, ctx), tdata)
     np.testing.assert_array_equal(turbo.TurboShardedDecoder(w, h, mesh, cfg).decode(tdata), out)
 
 

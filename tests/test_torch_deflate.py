@@ -227,3 +227,79 @@ def test_streaming_encoder_on_cpu_keeps_the_zlib_sinks():
                                    device="cpu", device_pack=device_pack)
             assert not isinstance(enc.sink, entropy.DeviceDeflateSink)
             enc.finish()
+
+
+def wire_plane_bytes(n: int) -> np.ndarray:
+    """The first ``n`` bytes of the bench clip's turbo wire plane (GOP 0)."""
+    from dct3d_tpu_torch import encode_turbo_video
+    from dct3d_tpu_torch.parallel.multihost import split_members
+
+    data = encode_turbo_video(bench_clip(8, 64, 96), CodecConfig(turbo_codec="zlib"),
+                              device="cpu")
+    payload = split_members(data)[0][1]
+    a = int(np.frombuffer(payload[:4], "<u4")[0])
+    plane = np.frombuffer(zlib.decompress(payload[16 : 16 + a]), np.uint8)
+    return np.tile(plane, -(-n // len(plane)))[:n]
+
+
+@pytest.mark.parametrize("level", range(10))
+def test_zlib_stream_frames_a_span(level):
+    """zlib_stream wraps a plain-engine span of a few KiB of the turbo wire
+    plane in zlib's header for the level, ``03 00`` and the adler32 from the
+    span's sums: zlib.decompress (which checks the adler32) reads it back."""
+    x = wire_plane_bytes(6000)
+    out, info = deflate.deflate(torch.from_numpy(x), torch.tensor(8 * len(x)), level)
+    nout, s1, s2 = (int(info[k]) for k in (deflate.I_OUT_BYTES, deflate.I_S1, deflate.I_S2))
+    stream = deflate.zlib_stream(out[:nout].numpy().tobytes(), level, s1, s2, len(x))
+    assert deflate.zlib_header(level) == zlib.compress(b"x", level)[:2] == stream[:2]
+    assert stream[-6:-4] == b"\x03\x00"
+    assert zlib.decompress(stream) == x.tobytes()
+
+
+def test_turbo_member_from_a_finished_plane_stream():
+    """_member_payload given the plane's finished stream ships it as the
+    first stream and compresses the other three as from the plane: with
+    zlib's own stream the payload is the host route's byte for byte; with
+    a plain-engine stream it parses to the same plane and exceptions."""
+    from dct3d_tpu_torch.codec import turbo
+
+    cfg = CodecConfig(turbo_codec="zlib", zlib_level=6)
+    rng = np.random.default_rng(5)
+    cubes = 40
+    plane = rng.integers(0, 3, (256, cubes), dtype=np.uint8)
+    dc = rng.integers(-300, 300, cubes).astype(np.int16)
+    idx = np.sort(rng.choice(cubes * 512, 30, replace=False))
+    idx = idx[idx % 512 != 0]
+    val = rng.integers(8, 90, idx.size).astype(np.int16)
+    host = turbo._member_payload(plane, dc, idx, val, cfg, wire=True)
+    flat = plane.reshape(-1)
+    assert turbo._member_payload(None, dc, idx, val, cfg,
+                                 plane_stream=zlib.compress(flat.tobytes(), 6)) == host
+    out, info = deflate.deflate(torch.from_numpy(flat), torch.tensor(8 * flat.size), 6)
+    nout, s1, s2 = (int(info[k]) for k in (deflate.I_OUT_BYTES, deflate.I_S1, deflate.I_S2))
+    card = turbo._member_payload(None, dc, idx, val, cfg, plane_stream=deflate.zlib_stream(
+        out[:nout].numpy().tobytes(), 6, s1, s2, flat.size))
+    assert card[16:] != host[16:]
+    for a, b in zip(turbo._parse_payload(card, 512, wire=True),
+                    turbo._parse_payload(host, 512, wire=True)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("codec", ["zlib", "zstd"])
+@pytest.mark.parametrize("workers", [0, -1])
+def test_turbo_encoder_on_cpu_keeps_host_compression(codec, workers):
+    """A CPU turbo encode never takes the card's DEFLATE: no ``deflate``
+    stage, no launch, and the plane's stream is the host's."""
+    from dct3d_tpu_torch import TurboEncoder, kernels
+    from dct3d_tpu_torch.codec import turbo
+
+    cfg = CodecConfig(turbo_codec=codec, deflate_workers=workers, zlib_level=6)
+    kernels.LAUNCHES.clear()
+    enc = TurboEncoder(96, 64, cfg, device="cpu")
+    data = enc.push(bench_clip(16, 64, 96)) + enc.finish()
+    assert not enc._card_deflate
+    assert "deflate" not in enc.timer.calls and not kernels.LAUNCHES["deflate"]
+    for _, payload, _ in turbo.split_members(data):
+        a = int(np.frombuffer(payload[:4], "<u4")[0])
+        first = payload[16 : 16 + a]
+        assert first == turbo._compress(turbo._decompress(first), cfg)
