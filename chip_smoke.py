@@ -606,9 +606,9 @@ def phase_deflate(gop0: np.ndarray, ctx, card: str) -> None:
     """deflate_case on GOP 0's device bytes (encode_step, as the encoder's
     drainer gets them) at the configuration's zlib level, and on GOP 0's
     turbo wire plane (encode_step_turbo, as TurboEncoder's drain workers
-    get it) at TURBO_CFG's level; TurboEncoder's own framing of that plane
-    (``_deflate_plane``) equal to the plain span's zlib stream, with
-    zlib.compress's header, and inflating to the plane."""
+    get it) at TURBO_CFG's level; the drain's driver (``deflate.Deflater``)
+    and framing (``zlib_stream``) of that plane equal to the plain span's
+    zlib stream, with zlib.compress's header, and inflating to the plane."""
     zero = torch.zeros((), dtype=torch.int64, device="cuda")
     frames = torch.from_numpy(gop0).to("cuda")
     step = transform.encode_step(frames, ctx, zero, zero.clone())
@@ -622,16 +622,16 @@ def phase_deflate(gop0: np.ndarray, ctx, card: str) -> None:
     level = tcfg.zlib_level
     span, s1, s2 = deflate_case(card, flat, torch.tensor(8 * n, device="cuda"), level,
                                 input="turbo_wire_plane")
-    enc = turbo.TurboEncoder(W, H, tcfg, device="cuda")
-    stream = enc._deflate_plane(plane)
-    enc.finish()
+    driver = deflate.Deflater(level)
+    got, total, d1, d2, _ = driver(flat, torch.tensor(8 * n, device="cuda"))
+    stream = deflate.zlib_stream(got, level, d1, d2, total // 8)
     raw = flat.cpu().numpy().tobytes()
     check(stream == deflate.zlib_stream(span.tobytes(), level, s1, s2, n)
           and stream[:2] == zlib.compress(raw[:64], level)[:2]
           and zlib.decompress(stream) == raw,
-          "TurboEncoder's plane stream is not the plain span's zlib stream")
+          "the driver's plane stream is not the plain span's zlib stream")
     emit(phase="deflate", input="turbo_wire_plane", encoder_stream_equals_plain=True,
-         stream_bytes=len(stream), deflate_stage_calls=enc.timer.calls.get("deflate"))
+         stream_bytes=len(stream), deflate_stage_calls=driver.timer.calls.get("deflate"))
 
 
 def phase_turbo_kernels(gop0: np.ndarray, ctx, card: str) -> list[dict]:

@@ -30,8 +30,9 @@ import torch
 from ..config import CodecConfig
 from ..ops import relayout
 from ..profiling import trace, traced_iter
+from ..staging import landed, to_device, to_host_async
 from . import entropy
-from .transform import TransformContext, planar4_to_frames, to_device
+from .transform import TransformContext, planar4_to_frames
 
 _WINDOW = 4  # GOPs in flight on the device before the oldest is drained
 
@@ -94,17 +95,6 @@ def _dispatch_planar4(planar, ctx: TransformContext, height: int,
         return planar4_to_frames(plane, idx, val, dc, ctx, height, width)
 
 
-def _to_host_async(frames: torch.Tensor):
-    """Start a device->host copy; returns (host tensor, event or None)."""
-    if frames.device.type != "cuda":
-        return frames, None
-    host = torch.empty(frames.shape, dtype=frames.dtype, pin_memory=True)
-    host.copy_(frames, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(frames.device))
-    return host, done
-
-
 class StreamingDecoder:
     """Feed compressed bytes, pull decoded frame batches.
 
@@ -145,15 +135,11 @@ class StreamingDecoder:
             planar = self.source.try_read_planar4(self._coeffs_per_gop)
             if planar is None:
                 break
-            pending.append(_to_host_async(_dispatch_planar4(
+            pending.append(to_host_async(_dispatch_planar4(
                 planar, self.ctx, self.height, self.width)))
         if not pending:
             return None
-        for _, done in pending:
-            if done is not None:
-                done.synchronize()
-        return np.concatenate([_undelta(host.numpy(), self.ctx.cfg)
-                               for host, _ in pending])
+        return np.concatenate([_undelta(landed(p), self.ctx.cfg) for p in pending])
 
 
 def decode_video(
@@ -277,10 +263,8 @@ def decode_frame_range(
 
     def drain_one() -> None:
         with trace("readback"):
-            k, host, done = pending.popleft()
-            if done is not None:
-                done.synchronize()
-            out[k * fpg : (k + 1) * fpg] = _undelta(host.numpy(), ctx.cfg)
+            k, started = pending.popleft()
+            out[k * fpg : (k + 1) * fpg] = _undelta(landed(started), ctx.cfg)
 
     try:
         for k, (plane, ei, ev, _pos) in enumerate(traced_iter(
@@ -289,7 +273,7 @@ def decode_frame_range(
                 entropy_workers, positions=span,
             ))):
             frames_dev = _dispatch_planar4((plane, ei, ev), ctx, height, width)
-            pending.append((k, *_to_host_async(frames_dev)))
+            pending.append((k, to_host_async(frames_dev)))
             if len(pending) >= _WINDOW:
                 drain_one()
     except EOFError:

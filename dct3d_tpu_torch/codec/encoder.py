@@ -31,12 +31,11 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from .. import staging
 from ..config import CodecConfig
 from ..profiling import StageTimer, trace
 from . import entropy
-from .transform import (
-    EncodedGOP, TransformContext, encode_step, quantize_step, to_device,
-)
+from .transform import EncodedGOP, TransformContext, encode_step, quantize_step
 
 _MAX_INFLIGHT = 3  # GOPs in flight before push() waits for the oldest
 
@@ -94,9 +93,8 @@ class StreamingEncoder:
         self._carry = tuple(
             torch.tensor(c, dtype=torch.int64, device=self.device) for c in carry
         )
-        # The drainer's device->host copies run on their own stream, after
-        # an event recorded on the producing stream: the current stream is
-        # per thread in torch, so the drainer never touches the producer's.
+        # The drainer's device->host copies and the card's DEFLATE run on
+        # their own stream, after an event recorded on the producing stream.
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
         #: absolute bit position after each GOP — the seekable stream index
@@ -106,60 +104,22 @@ class StreamingEncoder:
 
     # -- internal ------------------------------------------------------------
 
-    def _readback(self, gop: EncodedGOP, done) -> tuple[int, np.ndarray]:
-        """(total_bits, packed bytes through the partial last byte)."""
-        if self._copy_stream is None:
-            total_bits = int(gop.total_bits)
-            return total_bits, gop.packed[: total_bits // 8 + 1].numpy()
-        with torch.cuda.stream(self._copy_stream):
-            self._copy_stream.wait_event(done)
-            with self.timer.stage("device_wait"):
-                total_bits = int(gop.total_bits)  # synchronizes the copy stream
-            nbytes = total_bits // 8 + 1
-            return total_bits, self._copy_back(gop.packed[:nbytes])
-
-    def _copy_back(self, t: torch.Tensor) -> np.ndarray:
-        """Copy a device tensor into pinned host memory on the copy stream
-        (the caller has made it wait for the producer's event)."""
-        with self.timer.stage("d2h", t.numel() * t.element_size()):
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t, non_blocking=True)
-            self._copy_stream.synchronize()
-        return host.numpy()
-
     def _drain_values(self, q: torch.Tensor, done) -> bytes:
         """Drainer thread, host path: fetch one GOP's quantized ints and
         entropy-code them into the sink (no GOP boundary, no bit end: the
         JAX package's host path records neither)."""
-        if self._copy_stream is None:
-            host = q.numpy()
-        else:
-            with torch.cuda.stream(self._copy_stream):
-                self._copy_stream.wait_event(done)
-                host = self._copy_back(q)
+        with staging.after(done, self._copy_stream):
+            host = staging.fetch([q], self.timer)[0]
         with self.timer.stage("sink_push", host.nbytes):
             return self.sink.push_values(host.reshape(-1))
 
     def _drain_gop(self, gop: EncodedGOP, done) -> bytes:
-        """Drainer thread: fetch one GOP's packed bytes and deflate them
-        (or, with the device sink, deflate them on the card and fetch the
-        span).  Holds the GOP's device tensors until that is done."""
-        if isinstance(self.sink, entropy.DeviceDeflateSink):
-            with torch.cuda.stream(self._copy_stream):
-                self._copy_stream.wait_event(done)
-                with self.timer.stage("sink_push"):
-                    self.sink.gop_boundary()
-                    out, total_bits = self.sink.push_device(gop.packed, gop.total_bits)
-                    self.timer.add_bytes("sink_push", total_bits // 8)
-            self._note_end(total_bits)
-            return out
-        total_bits, packed = self._readback(gop, done)
+        """Drainer thread: hand one GOP to the sink's ``push_gop`` on the
+        copy stream.  Holds the GOP's device tensors until that is done."""
+        with staging.after(done, self._copy_stream):
+            out, total_bits = self.sink.push_gop(gop.packed, gop.total_bits)
         self._note_end(total_bits)
-        # Per-GOP sync boundary: the parallel sink resets its window here so
-        # decode can inflate GOPs independently (the serial sink no-ops).
-        with self.timer.stage("sink_push", total_bits // 8):
-            self.sink.gop_boundary()
-            return self.sink.push_packed(packed, total_bits)
+        return out
 
     def _note_end(self, total_bits: int) -> None:
         """Record a GOP's absolute end bit.  Per-batch total_bits includes
@@ -199,16 +159,13 @@ class StreamingEncoder:
                 if self.device_pack and self.cfg.transport_delta:
                     raw = _deltas(raw)
                 with self.timer.stage("stage_in", raw.nbytes):
-                    frames_dev = to_device(raw, self.device)
+                    frames_dev = staging.to_device(raw, self.device)
                 if not self.device_pack:
                     step = quantize_step(frames_dev, self.ctx)
                 else:
                     step = encode_step(frames_dev, self.ctx, *self._carry)
                     self._carry = (step.carry_code, step.carry_bits)
-            done = None
-            if self._copy_stream is not None:
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(self.device))
+            done = staging.mark(self.device)
             drain = self._drain_gop if self.device_pack else self._drain_values
             self._out.append(self._drainer.submit(drain, step, done))
             # Backpressure: bound in-flight device buffers / host memory.

@@ -43,7 +43,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, staging
+from ..ops import deflate as dev_deflate
 from ..profiling import StageTimer, trace, traced
 
 
@@ -920,7 +921,29 @@ def _final_byte(carry_code: int, carry_bits: int) -> int:
     return (carry_code << (8 - carry_bits)) & 0xFF if carry_bits else 0
 
 
-class DeflateSink:
+class _ZlibSink:
+    """The host zlib sinks' GOP entry point and host path."""
+
+    def push_gop(self, packed: torch.Tensor, total_bits: torch.Tensor
+                 ) -> tuple[bytes, int]:
+        """One GOP where the device step left it (as DeviceDeflateSink's):
+        the bit count (``device_wait`` on a card), the bytes through the
+        partial last byte (``d2h``), then the GOP's sync boundary and
+        ``push_packed`` (``sink_push``).  Returns (stream bytes, bits)."""
+        with staging.on_card(self.timer, "device_wait", packed.is_cuda):
+            bits = int(total_bits)  # synchronizes the current stream
+        host = staging.fetch([packed[: bits // 8 + 1]], self.timer)[0]
+        with self.timer.stage("sink_push", bits // 8):
+            self.gop_boundary()
+            return self.push_packed(host, bits), bits
+
+    def push_values(self, values: np.ndarray) -> bytes:
+        """Host path: entropy-code values directly into the sink."""
+        payload, nbits = encode_values(values, bitpos=self.carry_bits)
+        return self.push_packed(np.frombuffer(payload, dtype=np.uint8), nbits)
+
+
+class DeflateSink(_ZlibSink):
     """One zlib stream across all GOP chunks, whole bytes only, final extra
     byte on close — byte-compatible with both reference encoders.
 
@@ -944,11 +967,6 @@ class DeflateSink:
             return b""
         with self.timer.stage("deflate", len(chunk)):
             return self._z.compress(chunk)
-
-    def push_values(self, values: np.ndarray) -> bytes:
-        """Host path: entropy-code values directly into the sink."""
-        payload, nbits = encode_values(values, bitpos=self.carry_bits)
-        return self.push_packed(np.frombuffer(payload, dtype=np.uint8), nbits)
 
     def finish(self) -> bytes:
         """Final partial byte (zero-padded) or a zero byte, then Z_FINISH —
@@ -974,7 +992,7 @@ class DeflateSink:
         """No worker threads to release; symmetry with ParallelDeflateSink."""
 
 
-class ParallelDeflateSink:
+class ParallelDeflateSink(_ZlibSink):
     """Multi-threaded DEFLATE producing ONE valid zlib stream (pigz-style).
 
     Splits the Exp-Golomb byte stream into blocks, deflates them on a
@@ -1069,10 +1087,6 @@ class ParallelDeflateSink:
             self._submit(chunk)
         return self._ready()
 
-    def push_values(self, values: np.ndarray) -> bytes:
-        payload, nbits = encode_values(values, bitpos=self.carry_bits)
-        return self.push_packed(np.frombuffer(payload, dtype=np.uint8), nbits)
-
     def finish(self) -> bytes:
         self._submit(bytes([_final_byte(self.carry_code, self.carry_bits)]))
         self.carry_code = 0
@@ -1096,27 +1110,22 @@ class DeviceDeflateSink:
     payload.  ``parallel_inflate`` and the index v2 sync offsets read it as
     they read the parallel sink's stream.
 
-    ``push_device`` takes a GOP's CUDA bytes and bit count as the device
-    step left them; the kernels run on the caller's current stream and
-    read the byte count there, and the host waits once for the span's
-    length and once for its copy; ``append_span`` then places the span
-    (a span of the plain engine places the same way).  ``timer`` gets a
-    ``deflate`` stage a GOP (launch, wait, copy; the GOP's bytes in) and a
-    ``deflate_out`` stage (the copy; the span's bytes)."""
+    ``push_gop`` deflates a GOP with ``ops.deflate.Deflater`` on the
+    current stream; ``append_span`` places the span (a span of the plain
+    engine places the same way).  ``timer`` gets the driver's stages inside
+    a ``sink_push`` stage a GOP."""
 
     _HEADER = ParallelDeflateSink._HEADER
 
     def __init__(self, level: int = zlib.Z_BEST_COMPRESSION,
                  timer: StageTimer | None = None) -> None:
-        self._level = level
         self.timer = timer or StageTimer()
+        self._deflater = dev_deflate.Deflater(level, self.timer)
         self.carry_code = 0
         self.carry_bits = 0
         self._adler = zlib.adler32(b"")
         self._pos = 0  # compressed bytes written so far
         self._syncs: list[int] = []
-        self._ws = None  # ops.deflate.Workspace, sized by the first GOP
-        self._host = None  # pinned copy buffer
 
     def _head(self) -> bytes:
         if self._pos:
@@ -1132,33 +1141,25 @@ class DeviceDeflateSink:
         """Absolute compressed offset of each marked GOP (None if none)."""
         return self._syncs or None
 
-    def push_device(self, packed: torch.Tensor, total_bits: torch.Tensor
-                    ) -> tuple[bytes, int]:
+    def push_gop(self, packed: torch.Tensor, total_bits: torch.Tensor
+                 ) -> tuple[bytes, int]:
         """Deflate one GOP on the card: ``packed`` its (cap,) uint8 CUDA
         bytes, the carry's bits first, ``total_bits`` its 0-d int64 bit
-        count, both where the device step left them.  Returns (stream
-        bytes, total_bits)."""
-        from ..ops import deflate as dev_deflate
-
+        count, both where the device step left them; marks the GOP's sync
+        boundary.  Returns (stream bytes, total_bits)."""
         if not packed.is_cuda:
             raise ValueError("DeviceDeflateSink deflates CUDA tensors only")
-        with self.timer.stage("deflate"):
-            if self._ws is None or self._ws.cap < packed.numel():
-                self._ws = dev_deflate.Workspace(packed.numel(), packed.device)
-            out, info = dev_deflate.deflate(packed, total_bits, self._level, self._ws)
-            total, nout, s1, s2, tail = self._fetch(info, 5).tolist()
-            self.timer.add_bytes("deflate", total // 8)
-            with self.timer.stage("deflate_out", nout):
-                span = self._fetch(out, nout).numpy().tobytes()
-        return self.append_span(span, total, s1, s2, tail), total
+        with self.timer.stage("sink_push"):
+            self.gop_boundary()
+            span, total, s1, s2, tail = self._deflater(packed, total_bits)
+            self.timer.add_bytes("sink_push", total // 8)
+            return self.append_span(span, total, s1, s2, tail), total
 
     def append_span(self, span: bytes, total_bits: int, s1: int, s2: int,
                     tail: int) -> bytes:
         """Place one GOP's span (``ops.deflate``'s output and record: its
         bit count, adler32 sums and partial byte) in the stream; returns
         the stream bytes it adds."""
-        from ..ops import deflate as dev_deflate
-
         n, rem = total_bits // 8, total_bits % 8
         self.carry_code = tail >> (8 - rem) if rem else 0
         self.carry_bits = rem
@@ -1166,18 +1167,6 @@ class DeviceDeflateSink:
         head = self._head()
         self._pos += len(span)
         return head + span
-
-    def _fetch(self, t: torch.Tensor, n: int) -> torch.Tensor:
-        """The first ``n`` elements of the CUDA tensor ``t`` on the host: a
-        copy into a pinned buffer on the current stream, then a wait."""
-        nbytes = n * t.element_size()
-        if self._host is None or self._host.numel() < nbytes:
-            self._host = torch.empty(max(nbytes, 1 << 20), dtype=torch.uint8,
-                                     pin_memory=True)
-        host = self._host[:nbytes].view(t.dtype)
-        host.copy_(t[:n], non_blocking=True)
-        torch.cuda.current_stream(t.device).synchronize()
-        return host
 
     def finish(self) -> bytes:
         """The final byte (encoder.c:270) as a stored block, the final
@@ -1190,8 +1179,8 @@ class DeviceDeflateSink:
                 + struct.pack(">I", self._adler & 0xFFFFFFFF))
 
     def close(self) -> None:
-        """Drop the card's workspace and the pinned buffers."""
-        self._ws = self._host = None
+        """Drop the driver: the card's workspace and the pinned buffer."""
+        self._deflater = None
 
 
 def resolve_workers(deflate_workers: int) -> int:

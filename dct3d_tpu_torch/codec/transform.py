@@ -138,19 +138,6 @@ class TransformContext:
                                  for k in _MATRICES})
 
 
-def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> tensor on ``device``; to a card through pinned memory
-    with a non-blocking copy on the current stream.  Read-only arrays (views
-    of decompressed bytes) are copied, never aliased."""
-    arr = np.ascontiguousarray(arr)
-    if device.type == "cuda":
-        host = torch.empty(arr.shape, dtype=getattr(torch, arr.dtype.name),
-                           pin_memory=True)
-        host.numpy()[...] = arr
-        return host.to(device, non_blocking=True)
-    return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
-
-
 def _cubes_and_sums(frames: torch.Tensor,
                     cfg: CodecConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """(T, H, W) uint8 -> ((num_cubes, cube) pixels in the compute dtype

@@ -49,19 +49,20 @@ from typing import Iterable, NamedTuple
 import numpy as np
 import torch
 
+from .. import staging
 from ..config import CodecConfig
-from ..ops import exceptions, relayout
+from ..ops import deflate as dev_deflate, exceptions, relayout
 from ..parallel.multihost import (
     MEMBER_BLUE, MEMBER_GREEN, MEMBER_INDEX, MEMBER_RED, MEMBER_TEMPORAL,
     _member, split_members,
 )
 from ..parallel.mesh import GOP_AXIS, TILE_AXIS
-from ..parallel.sharding import _check_tiles, fetch, mesh_contexts
+from ..parallel.sharding import _check_tiles, mesh_contexts
 from ..profiling import StageTimer, trace, traced
 from . import entropy
-from .decoder import _dispatch_planar4, _to_host_async, _undelta, decode_video
+from .decoder import _dispatch_planar4, _undelta, decode_video
 from .encoder import _deltas, encode_video
-from .transform import TransformContext, _frames_to_q, to_device
+from .transform import TransformContext, _frames_to_q
 
 try:  # optional: smaller and faster than DEFLATE on the nibble plane
     import zstandard as _zstd
@@ -346,14 +347,14 @@ class TurboEncoder:
     over the drain workers.
 
     On a card, with ``deflate_workers != 0`` and a zlib wire, the worker
-    deflates the GOP's wire plane with the card's DEFLATE (ops/deflate.py)
-    on its stream and reads back only the compressed span, which it frames
-    as the plane's zlib stream: valid zlib, but not zlib's bytes.  Each
-    worker keeps its own workspace until ``finish()``.  The stages
-    ``deflate`` (launch, waits and copy; the plane's bytes in) and
-    ``deflate_out`` (the span's copy; its bytes) count that route.  CPU
-    tensors, ``deflate_workers=0`` and the zstd wire compress the plane
-    with ``_compress`` on the host, as the JAX package does.
+    deflates the GOP's wire plane with the card's DEFLATE on its stream
+    (its own ``ops.deflate.Deflater``, kept until ``finish()``) and reads
+    back only the compressed span, which it frames as the plane's zlib
+    stream: valid zlib, but not zlib's bytes.  The driver's stages
+    ``deflate`` (the plane's bytes in) and ``deflate_out`` (the span's
+    bytes) count that route.  CPU tensors, ``deflate_workers=0`` and the
+    zstd wire compress the plane with ``_compress`` on the host, as the
+    JAX package does.
 
     Usage:
         enc = TurboEncoder(width, height, cfg, device="cuda")
@@ -390,10 +391,13 @@ class TurboEncoder:
         )
         self._out: collections.deque = collections.deque()
         self._warned_fallback = False
-        self._local = threading.local()  # each worker's stream and DEFLATE state
+        self._local = threading.local()  # each worker's stream and Deflater
         self._card_deflate = (self.device.type == "cuda"
                               and self.cfg.deflate_workers != 0
                               and not _zstd_wire(self.cfg))
+        if self._card_deflate:  # the wire plane's bits: 4 a pixel
+            self._plane_bits = torch.tensor(4 * self.cfg.gop_size * height * width,
+                                            dtype=torch.int64, device=self.device)
 
     def _warn_fallback(self) -> None:
         self._warned_fallback = _warn_fallback_once(self._warned_fallback)
@@ -404,66 +408,24 @@ class TurboEncoder:
         None), and (plane, dc, lidx, vals, counts) on the host, after the
         overflow retry if one is needed; the plane is None on that route.
         Holds the GOP's device tensors until their copies are done."""
-        if done is None:
-            if bool(gop.overflow):
-                gop = encode_step_turbo(frames_dev, self.ctx, _RETRY_SLOTS,
-                                        wire=True)
-            return None, [t.numpy() for t in gop[:5]]
-        stream = getattr(self._local, "stream", None)
-        if stream is None:
-            stream = self._local.stream = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(stream):
-            stream.wait_event(done)
-            with self.timer.stage("device_wait"):
+        loc = self._local
+        if done is not None and getattr(loc, "stream", None) is None:
+            loc.stream = torch.cuda.Stream(self.device)
+            if self._card_deflate:
+                loc.deflater = dev_deflate.Deflater(self.cfg.zlib_level, self.timer)
+        with staging.after(done, getattr(loc, "stream", None)):
+            with staging.on_card(self.timer, "device_wait", done is not None):
                 overflow = bool(gop.overflow)  # synchronizes this stream
             if overflow:
                 gop = encode_step_turbo(frames_dev, self.ctx, _RETRY_SLOTS,
                                         wire=True)
-            plane_stream = (self._deflate_plane(gop.plane) if self._card_deflate
-                            else None)
-            tensors = gop[1:5] if plane_stream else gop[:5]
-            with self.timer.stage("d2h", sum(t.numel() * t.element_size()
-                                             for t in tensors)):
-                host = []
-                for t in tensors:
-                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                    h.copy_(t, non_blocking=True)
-                    host.append(h)
-                stream.synchronize()
-        host = [h.numpy() for h in host]
+            plane_stream = None
+            if self._card_deflate:
+                span, bits, s1, s2, _ = loc.deflater(gop.plane.reshape(-1), self._plane_bits)
+                plane_stream = dev_deflate.zlib_stream(span, self.cfg.zlib_level, s1, s2,
+                                                       bits // 8)
+            host = staging.fetch(gop[1:5] if plane_stream else gop[:5], self.timer)
         return plane_stream, [None, *host] if plane_stream else host
-
-    def _deflate_plane(self, plane: torch.Tensor) -> bytes:
-        """Worker, on its stream: the (cube/2, cubes) wire plane's zlib
-        stream from the card's DEFLATE.  The host waits once for the
-        span's length and sums, once for the span."""
-        from ..ops import deflate as dev_deflate
-
-        flat = plane.reshape(-1)
-        n = flat.numel()
-        level = self.cfg.zlib_level
-        if level == zlib.Z_DEFAULT_COMPRESSION:  # zlib.compress reads it as 6
-            level = 6
-        loc = self._local
-        stream = torch.cuda.current_stream(flat.device)
-        with self.timer.stage("deflate", n):
-            if getattr(loc, "ws", None) is None:  # one plane size an encoder
-                loc.ws = dev_deflate.Workspace(n, flat.device)
-                loc.nbits = torch.tensor(8 * n, dtype=torch.int64, device=flat.device)
-                loc.info = torch.empty(dev_deflate.INFO_WORDS, dtype=torch.int64,
-                                       pin_memory=True)
-                loc.span = torch.empty(dev_deflate.out_capacity(n), dtype=torch.uint8,
-                                       pin_memory=True)
-            out, info = dev_deflate.deflate(flat, loc.nbits, level, loc.ws)
-            loc.info.copy_(info, non_blocking=True)
-            stream.synchronize()
-            nout, s1, s2 = (int(loc.info[k]) for k in (
-                dev_deflate.I_OUT_BYTES, dev_deflate.I_S1, dev_deflate.I_S2))
-            with self.timer.stage("deflate_out", nout):
-                loc.span[:nout].copy_(out[:nout], non_blocking=True)
-                stream.synchronize()
-                span = loc.span[:nout].numpy().tobytes()
-        return dev_deflate.zlib_stream(span, level, s1, s2, n)
 
     def _drain_gop(self, gop: TurboGOP, frames_dev: torch.Tensor, done,
                    t: int, raw: np.ndarray) -> bytes:
@@ -493,13 +455,10 @@ class TurboEncoder:
             with self.timer.stage("dispatch", raw.nbytes):
                 up = _deltas(raw) if self.cfg.transport_delta else raw
                 with self.timer.stage("stage_in", up.nbytes):
-                    frames_dev = to_device(up, self.device)
+                    frames_dev = staging.to_device(up, self.device)
                 step = encode_step_turbo(frames_dev, self.ctx, self.slots,
                                          wire=True)
-            done = None
-            if self.device.type == "cuda":
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(self.device))
+            done = staging.mark(self.device)
             self._out.append(self._drainer.submit(
                 self._drain_gop, step, frames_dev, done, gop, raw))
             if len(self._out) > self.max_inflight:
@@ -522,7 +481,7 @@ class TurboEncoder:
     def finish(self) -> bytes:
         out = self.drain()
         self._drainer.shutdown(wait=True)
-        self._local = threading.local()  # frees the workers' DEFLATE workspaces
+        self._local = threading.local()  # frees the workers' Deflaters
         return out
 
 
@@ -576,7 +535,7 @@ class TurboShardedEncoder:
         out = []
         for k, dev in enumerate(self.mesh.devices):
             g, t = divmod(k, n_tile)
-            fd = to_device(frames[g * gop : (g + 1) * gop, t * lh : (t + 1) * lh], dev)
+            fd = staging.to_device(frames[g * gop : (g + 1) * gop, t * lh : (t + 1) * lh], dev)
             out.append(_plane_and_tables(
                 _frames_to_q(fd, self._ctx[dev].enc_t_pair, self._shard_cfg), slots,
                 wire=True))
@@ -602,7 +561,7 @@ class TurboShardedEncoder:
             shards = self._step(step, self.slots)
             if bool(torch.stack([s.overflow.to(dev0) for s in shards]).any()):
                 shards = self._step(step, _RETRY_SLOTS)
-            host = fetch([a for s in shards for a in s[:5]])
+            host = staging.fetch([a for s in shards for a in s[:5]])
             for g in range(n_gop):
                 futs.append(self._pool.submit(
                     self._member, host[5 * g * n_tile : 5 * (g + 1) * n_tile],
@@ -671,7 +630,7 @@ class TurboShardedDecoder:
 
     def _dispatch(self, parsed: list) -> list:
         """n_gop parsed split-DC wire payloads -> each shard's frames on its
-        device, started back to the host (_to_host_async), rank order."""
+        device, started back to the host (staging.to_host_async), rank order."""
         n_tile = self._mesh_shape[1]
         local_h = self.height // n_tile
         local_n = self.cfg.gop_size * local_h * self.width
@@ -683,7 +642,7 @@ class TurboShardedDecoder:
             sel = (idx >= t * local_n) & (idx < (t + 1) * local_n)
             planar = (wire[:, t * lc : (t + 1) * lc], dc[t * lc : (t + 1) * lc],
                       idx[sel] - t * local_n, val[sel])
-            out.append(_to_host_async(
+            out.append(staging.to_host_async(
                 _dispatch_planar4(planar, self._ctx[dev], local_h, self.width)))
         return out
 
@@ -707,11 +666,10 @@ class TurboShardedDecoder:
 
         def drain_one() -> None:
             a0, parts = pending.popleft()
-            for k, (host, done) in enumerate(parts):
-                if done is not None:
-                    done.synchronize()
+            for k, started in enumerate(parts):
                 g, t = divmod(k, n_tile)
-                out[a0 + g * gop : a0 + (g + 1) * gop, t * lh : (t + 1) * lh] = host.numpy()
+                out[a0 + g * gop : a0 + (g + 1) * gop,
+                    t * lh : (t + 1) * lh] = staging.landed(started)
 
         with ThreadPoolExecutor(self._workers) as pool:
             n_main = n_steps * n_gop
@@ -957,10 +915,8 @@ def _decode_members(members, pool, width, height, cfg, ctx) -> np.ndarray:
 
     def drain_one() -> None:
         with trace("readback"):
-            a0, t, host, done = pending.popleft()
-            if done is not None:
-                done.synchronize()
-            out[a0 : a0 + t] = _undelta(host.numpy(), ctx.cfg)
+            a0, t, started = pending.popleft()
+            out[a0 : a0 + t] = _undelta(staging.landed(started), ctx.cfg)
 
     cube = cfg.cube_size
     lookahead = max(4, 2 * pool._max_workers)
@@ -985,7 +941,7 @@ def _decode_members(members, pool, width, height, cfg, ctx) -> np.ndarray:
         if mtype in _REF_TYPES:
             out[a0 : a0 + t] = planar  # already decoded frames
         else:
-            pending.append((a0, t, *_to_host_async(
+            pending.append((a0, t, staging.to_host_async(
                 _dispatch_planar4(planar, ctx, height, width))))
             if len(pending) >= _WINDOW:
                 drain_one()

@@ -3,10 +3,11 @@ and its plain version.
 
 The kernels replace no TPU kernel: the JAX package deflates on the host
 (``dct3d_tpu.codec.entropy``'s zlib sinks).  They take the host zlib pool
-off the reference encode: ``codec/entropy.DeviceDeflateSink`` launches them
-on each GOP's device bytes and copies back only the compressed span.  The
-turbo drain (``codec/turbo.TurboEncoder``) launches them on each GOP's
-nibble wire plane and frames the span as a zlib stream (``zlib_stream``).
+off the reference encode and the turbo drain through one driver,
+``Deflater``, which launches them on a GOP's device bytes and copies back
+only the compressed span: ``codec/entropy.DeviceDeflateSink`` places each
+GOP's span in its stream, and ``codec/turbo.TurboEncoder`` frames the span
+of each GOP's nibble wire plane as a zlib stream (``zlib_stream``).
 
 What one call writes, for a GOP of ``n = total_bits // 8`` whole bytes:
 raw DEFLATE blocks that refer to nothing before the GOP's first byte, then
@@ -63,11 +64,13 @@ written from the description above; CUDA tensors launch the kernels
 from __future__ import annotations
 
 import struct
+import zlib
 
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, staging
+from ..profiling import StageTimer
 
 #: bytes a segment parses on its own (step 3)
 SEGMENT = 32768
@@ -608,9 +611,20 @@ def adler32_of(s1: int, s2: int, n: int) -> int:
     return ((1 + s1) % 65521) | (((n + s2) % 65521) << 16)
 
 
+def zlib_level(level: int) -> int:
+    """``level`` as zlib reads it: -1 (``Z_DEFAULT_COMPRESSION``) is 6;
+    anything else outside 0-9 raises."""
+    if level == zlib.Z_DEFAULT_COMPRESSION:
+        return 6
+    if level not in LEVELS:
+        raise ValueError(f"zlib level {level} is not 0-9")
+    return level
+
+
 def zlib_header(level: int) -> bytes:
-    """The two bytes ``zlib.compress`` writes at ``level`` (0-9): CMF 0x78,
-    then FLEVEL and the check bits."""
+    """The two bytes ``zlib.compress`` writes at ``level`` (-1 or 0-9):
+    CMF 0x78, then FLEVEL and the check bits."""
+    level = zlib_level(level)
     flevel = 0 if level < 2 else 1 if level < 6 else 2 if level == 6 else 3
     return bytes([0x78, flevel << 6 | (31 - (0x7800 | flevel << 6) % 31) % 31])
 
@@ -659,7 +673,7 @@ class Workspace:
 
 def deflate(packed: torch.Tensor, total_bits: torch.Tensor, level: int,
             ws: Workspace | None = None):
-    """One GOP's DEFLATE span from its bytes.
+    """One GOP's DEFLATE span from its bytes at ``level`` (-1 or 0-9).
 
     ``packed``: (cap,) uint8, the GOP's bytes (Exp-Golomb, the carried
     partial byte included) in its first ``total_bits // 8``, then the
@@ -673,8 +687,7 @@ def deflate(packed: torch.Tensor, total_bits: torch.Tensor, level: int,
     then the span."""
     if packed.dtype != torch.uint8 or packed.dim() != 1:
         raise ValueError("deflate takes a (cap,) uint8 buffer")
-    if level not in LEVELS:
-        raise ValueError(f"zlib level {level} is not 0-9")
+    level = zlib_level(level)
     if packed.device.type == "cpu":
         bits = int(total_bits)
         out, s1, s2 = deflate_plain(packed[: bits // 8].numpy(), level)
@@ -690,3 +703,32 @@ def deflate(packed: torch.Tensor, total_bits: torch.Tensor, level: int,
                    lazy, nice, depth, ws.prev, ws.match, ws.seg_count, ws.pieces,
                    ws.desc, ws.out, ws.info)
     return ws.out.view(torch.uint8), ws.info
+
+
+class Deflater:
+    """One thread's driver of the card's DEFLATE at ``level`` (-1 or 0-9),
+    one GOP a call, keeping its ``Workspace`` (grown to the largest GOP)
+    and one ``staging.HostBuffer``.  ``timer`` gets a ``deflate`` stage a
+    call (the input's whole bytes) and inside it a ``deflate_out`` stage
+    (the span's copy; its bytes)."""
+
+    def __init__(self, level: int, timer: StageTimer | None = None) -> None:
+        self.level = zlib_level(level)
+        self.timer = timer or StageTimer()
+        self._ws: Workspace | None = None
+        self._host = staging.HostBuffer()
+
+    def __call__(self, packed: torch.Tensor, total_bits: torch.Tensor
+                 ) -> tuple[bytes, int, int, int, int]:
+        """``deflate`` on the current stream; the host waits once for the
+        record, once for the span.  Returns (span, total bits, S1, S2, the
+        partial byte or 0)."""
+        with self.timer.stage("deflate"):
+            if self._ws is None or self._ws.cap < packed.numel():
+                self._ws = Workspace(packed.numel(), packed.device)
+            out, info = deflate(packed, total_bits, self.level, self._ws)
+            total, nout, s1, s2, tail = self._host.read(info, I_TAIL + 1).tolist()
+            self.timer.add_bytes("deflate", total // 8)
+            with self.timer.stage("deflate_out", nout):
+                span = self._host.read(out, nout).numpy().tobytes()
+        return span, total, s1, s2, tail

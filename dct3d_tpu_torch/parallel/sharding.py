@@ -34,14 +34,14 @@ import torch
 
 from .. import native
 from ..codec import entropy
-from ..codec.decoder import _to_host_async
 from ..codec.transform import (
     TransformContext, _dequant_matmul, _finish_frames, _frames_to_q,
-    host_matrices, to_device,
+    host_matrices,
 )
 from ..config import CodecConfig
 from ..ops import bitpack, expgolomb, group_pack
 from ..profiling import StageTimer
+from ..staging import fetch, landed, to_device, to_host_async
 from .mesh import GOP_AXIS, TILE_AXIS, Mesh, normalize_device
 
 _WINDOW = 3  # decode: mesh steps in flight on the devices
@@ -71,16 +71,6 @@ def _check_tiles(cfg: CodecConfig, height: int, n_tile: int) -> None:
             f"height {height} must split into {n_tile} tiles of whole "
             f"{cfg.block_h}-pixel block rows"
         )
-
-
-def fetch(tensors: list[torch.Tensor]) -> list[np.ndarray]:
-    """Device tensors -> host arrays: every copy started at once
-    (decoder._to_host_async), then each waited for."""
-    started = [_to_host_async(t) for t in tensors]
-    for _, done in started:
-        if done is not None:
-            done.synchronize()
-    return [host.numpy() for host, _ in started]
 
 
 class ShardedEncoder:
@@ -367,15 +357,13 @@ class ShardedDecoder:
 
         def dispatch(vals: np.ndarray) -> None:
             shards = self._step(self._relayout(vals, n_gop, n_tile))
-            pending.append([_to_host_async(f) for f in shards])
+            pending.append([to_host_async(f) for f in shards])
 
         def drain_one() -> np.ndarray:
             out = np.empty((step_t, self.height, self.width), np.uint8)
-            for k, (host, done) in enumerate(pending.popleft()):
-                if done is not None:
-                    done.synchronize()
+            for k, started in enumerate(pending.popleft()):
                 g, t = divmod(k, n_tile)
-                out[g * gop : (g + 1) * gop, t * lh : (t + 1) * lh] = host.numpy()
+                out[g * gop : (g + 1) * gop, t * lh : (t + 1) * lh] = landed(started)
             return out
 
         hint = cps * self.cfg.stream_budget_bits_per_value

@@ -805,6 +805,49 @@ def test_device_sink_container_on_card(dev, monkeypatch):
                                   decode_auto(zdata, 128, 96, device=dev))
 
 
+def test_default_zlib_level_on_card(dev):
+    """A reference encode at ``zlib_level=-1`` (zlib's default, 6) through
+    the device sink writes a stream that inflates to the CPU encoder's
+    payload at the same level, with the card's DEFLATE launched."""
+    clip = synthetic_video(16, 48, 64, seed=9)
+    cfg = CodecConfig(zlib_level=-1, deflate_workers=-1)
+    kernels.LAUNCHES.clear()
+    enc = StreamingEncoder(64, 48, cfg, device=dev)
+    stream = enc.push(clip) + enc.finish()
+    assert isinstance(enc.sink, entropy.DeviceDeflateSink)
+    assert kernels.LAUNCHES["deflate"] == 2
+    assert zlib.decompress(stream) == zlib.decompress(encode_video(clip, cfg, device="cpu"))
+
+
+def test_staging_copies_on_card(dev):
+    """fetch of card tensors equals their .cpu(), in pinned memory, with one
+    ``d2h`` stage of their bytes; the reused buffer is pinned and reads
+    what it is given; a zlib sink's GOP entry point on the card counts
+    ``device_wait`` and ``d2h`` and writes the CPU's bytes."""
+    from dct3d_tpu_torch import staging
+    from dct3d_tpu_torch.profiling import StageTimer
+
+    tensors = [torch.arange(1000, device=dev, dtype=torch.int32),
+               torch.full((7, 3), 5, device=dev, dtype=torch.uint8)]
+    timer = StageTimer()
+    got = staging.fetch(tensors, timer)
+    for g, t in zip(got, tensors):
+        np.testing.assert_array_equal(g, t.cpu().numpy())
+    assert timer.calls["d2h"] == 1 and timer.bytes["d2h"] == 4000 + 21
+    buf = staging.HostBuffer()
+    assert buf.read(tensors[0], 10).tolist() == list(range(10))
+    assert buf._buf.is_pinned()
+    raw = _deflate_input("stream")[:50_000]
+    packed = np.concatenate([raw, np.zeros(1, np.uint8)])
+    card, cpu = entropy.DeflateSink(6), entropy.DeflateSink(6)
+    got = card.push_gop(torch.from_numpy(packed).to(dev),
+                        torch.tensor(8 * len(raw) - 3, device=dev))
+    want = cpu.push_gop(torch.from_numpy(packed), torch.tensor(8 * len(raw) - 3))
+    assert got == want and card.finish() == cpu.finish()
+    assert card.timer.calls["device_wait"] == card.timer.calls["d2h"] == 1
+    assert not {"device_wait", "d2h"} & set(cpu.timer.calls)
+
+
 def test_device_sink_counts_stages_per_gop(dev):
     """One ``deflate`` and one ``deflate_out`` stage a GOP, none on finish,
     with the GOP's bytes in and the span's bytes out; the stream inflates to
@@ -815,15 +858,15 @@ def test_device_sink_counts_stages_per_gop(dev):
     sink, spans, done = entropy.DeviceDeflateSink(6), [], 0
     for end in ends:
         a = done // 8
-        sink.gop_boundary()
-        got, total = sink.push_device(torch.from_numpy(buf[a:].copy()).to(dev),
-                                      torch.tensor(end - 8 * a, device=dev))
+        got, total = sink.push_gop(torch.from_numpy(buf[a:].copy()).to(dev),
+                                   torch.tensor(end - 8 * a, device=dev))
         assert total == end - 8 * a
         spans.append(got)
         done = end
     data = b"".join(spans) + sink.finish()
     sink.close()
     assert sink.timer.calls["deflate"] == 3 and sink.timer.calls["deflate_out"] == 3
+    assert sink.timer.calls["sink_push"] == 3 and len(sink.sync_offsets()) == 3
     assert sink.timer.bytes["deflate"] == sum((e - d // 8 * 8) // 8 for e, d in
                                               zip(ends, [0] + ends[:-1]))
     assert sink.timer.bytes["deflate_out"] == sum(map(len, spans)) - 2  # the header is the sink's

@@ -32,11 +32,11 @@ def bench_clip(t: int, h: int, w: int, seed: int = 3) -> np.ndarray:
 
 def push_plain(sink: entropy.DeviceDeflateSink, buf: np.ndarray, bits: int,
                level: int) -> bytes:
-    """What ``sink.push_device`` adds for a GOP, with the plain engine in
-    place of the card's kernels."""
-    out, info = deflate.deflate(torch.from_numpy(buf), torch.tensor(bits), level)
-    total, nout, s1, s2, tail = info[:5].tolist()
-    return sink.append_span(out[:nout].numpy().tobytes(), total, s1, s2, tail)
+    """What ``sink.push_gop`` adds for a GOP after its sync boundary, with
+    the driver running the plain engine in place of the card's kernels."""
+    span, total, s1, s2, tail = deflate.Deflater(level)(torch.from_numpy(buf),
+                                                        torch.tensor(bits))
+    return sink.append_span(span, total, s1, s2, tail)
 
 
 def stream_bytes(clip: np.ndarray) -> np.ndarray:
@@ -190,8 +190,38 @@ def test_device_sink_refuses_cpu_tensors():
     buf, bits = gops[0]
     sink = entropy.DeviceDeflateSink(6)
     with pytest.raises(ValueError, match="CUDA"):
-        sink.push_device(torch.from_numpy(buf), torch.tensor(bits))
+        sink.push_gop(torch.from_numpy(buf), torch.tensor(bits))
     assert sink.timer.calls.get("deflate", 0) == 0
+
+
+@pytest.mark.parametrize("sink", ["serial", "parallel"])
+def test_zlib_sinks_push_gop_equals_push_packed(sink):
+    """A zlib sink's GOP entry point on CPU tensors writes the bytes of the
+    GOP's boundary and ``push_packed`` of its bytes through the partial last
+    byte, counts one ``sink_push`` stage a GOP (the GOP's whole bytes) and
+    neither ``device_wait`` nor ``d2h``."""
+    stream, gops = _gops(8, 4)
+
+    def make():
+        return entropy.DeflateSink(9) if sink == "serial" else entropy.ParallelDeflateSink(9, 2)
+
+    a, b = make(), make()
+    got, want = [], []
+    for buf, bits in gops:
+        data, total = a.push_gop(torch.from_numpy(buf), torch.tensor(bits))
+        assert total == bits
+        got.append(data)
+        b.gop_boundary()
+        want.append(b.push_packed(buf[: bits // 8 + 1], bits))
+    got.append(a.finish())
+    want.append(b.finish())
+    assert b"".join(got) == b"".join(want)
+    assert a.sync_offsets() == b.sync_offsets()
+    assert a.timer.calls["sink_push"] == len(gops)
+    assert a.timer.bytes["sink_push"] == sum(bits // 8 for _, bits in gops)
+    assert not {"device_wait", "d2h"} & set(a.timer.calls)
+    a.close()
+    b.close()
 
 
 def test_empty_device_sink_is_a_valid_stream():
@@ -242,7 +272,7 @@ def wire_plane_bytes(n: int) -> np.ndarray:
     return np.tile(plane, -(-n // len(plane)))[:n]
 
 
-@pytest.mark.parametrize("level", range(10))
+@pytest.mark.parametrize("level", range(-1, 10))
 def test_zlib_stream_frames_a_span(level):
     """zlib_stream wraps a plain-engine span of a few KiB of the turbo wire
     plane in zlib's header for the level, ``03 00`` and the adler32 from the
@@ -254,6 +284,25 @@ def test_zlib_stream_frames_a_span(level):
     assert deflate.zlib_header(level) == zlib.compress(b"x", level)[:2] == stream[:2]
     assert stream[-6:-4] == b"\x03\x00"
     assert zlib.decompress(stream) == x.tobytes()
+
+
+def test_default_level_reads_as_six():
+    """Level -1 is zlib's default, 6, for the engine, the header and the
+    driver (the CLI's ``--zlib-level -1`` on the card); other levels outside
+    0-9 raise."""
+    x = wire_plane_bytes(5000)
+    bits = torch.tensor(8 * len(x))
+    out, info = deflate.deflate(torch.from_numpy(x), bits, -1)
+    out6, info6 = deflate.deflate(torch.from_numpy(x), bits, 6)
+    assert torch.equal(info, info6)
+    assert torch.equal(out[: int(info[deflate.I_OUT_BYTES])],
+                       out6[: int(info6[deflate.I_OUT_BYTES])])
+    assert deflate.zlib_header(-1) == zlib.compress(b"", -1)[:2] == deflate.zlib_header(6)
+    assert deflate.Deflater(-1)(torch.from_numpy(x), bits) == deflate.Deflater(6)(
+        torch.from_numpy(x), bits)
+    for bad in (-2, 10):
+        with pytest.raises(ValueError, match="not 0-9"):
+            deflate.zlib_level(bad)
 
 
 def test_turbo_member_from_a_finished_plane_stream():
