@@ -6,7 +6,8 @@ sync offsets are given) and entropy-decodes GOPs on a thread pool into
 nibble planes + exceptions (C, codec/entropy.py); each GOP goes to the
 device with non-blocking copies from pinned memory, is inverse-transformed
 there (codec/transform.planar4_to_frames), and comes back with a
-non-blocking copy while the host decodes the next GOPs.
+non-blocking copy while the host decodes the next GOPs: in a whole-output
+decode straight into its slice of the output (staging.Landing).
 ``StreamingDecoder`` / ``decode_stream`` run the same device step on
 compressed bytes fed in pieces (entropy.InflateSource).  Without an index
 the GOP boundaries come from the fused speculative decode
@@ -19,7 +20,6 @@ the reference (no container header, Decoder.java:17-28, main.c:27-44).
 
 from __future__ import annotations
 
-import collections
 import os
 import zlib
 from typing import Iterable, Iterator
@@ -30,22 +30,24 @@ import torch
 from ..config import CodecConfig
 from ..ops import relayout
 from ..profiling import trace, traced_iter
-from ..staging import landed, to_device, to_host_async
+from ..staging import Landing, landed, to_device, to_host_async
 from . import entropy
 from .transform import TransformContext, planar4_to_frames
 
-_WINDOW = 4  # GOPs in flight on the device before the oldest is drained
 
-
-def _undelta(frames: np.ndarray, cfg: CodecConfig) -> np.ndarray:
+def _undelta(frames: np.ndarray, cfg: CodecConfig,
+             out: np.ndarray | None = None) -> np.ndarray:
     """Reconstruct frames shipped as wrapping temporal deltas (exact), GOP
     by GOP: the deltas restart at every GOP.  The drains pass the
-    context's cfg, the one the device step emitted the deltas under."""
+    context's cfg, the one the device step emitted the deltas under.
+    ``out=frames`` rebuilds a landed output's slice in place."""
     if not cfg.transport_delta:
         return frames
     t, h, w = frames.shape
     gops = frames.reshape(t // cfg.gop_size, cfg.gop_size, h, w)
-    return np.cumsum(gops, axis=1, dtype=np.uint8).reshape(frames.shape)
+    return np.cumsum(gops, axis=1, dtype=np.uint8,
+                     out=None if out is None else out.reshape(gops.shape)
+                     ).reshape(frames.shape)
 
 
 def _split_dc_flat(plane: np.ndarray, idx: np.ndarray, val: np.ndarray,
@@ -258,14 +260,7 @@ def decode_frame_range(
                         pos = entropy.scan_values(payload, cpg, pos)
             except EOFError:
                 raise EOFError("bitstream too short for requested frame range")
-    out = np.empty(((g1 - g0) * fpg, height, width), np.uint8)
-    pending: collections.deque = collections.deque()
-
-    def drain_one() -> None:
-        with trace("readback"):
-            k, started = pending.popleft()
-            out[k * fpg : (k + 1) * fpg] = _undelta(landed(started), ctx.cfg)
-
+    landing = Landing(((g1 - g0) * fpg, height, width), ctx.device)
     try:
         for k, (plane, ei, ev, _pos) in enumerate(traced_iter(
             "entropy_wait", entropy.parallel_chunks(
@@ -273,13 +268,12 @@ def decode_frame_range(
                 entropy_workers, positions=span,
             ))):
             frames_dev = _dispatch_planar4((plane, ei, ev), ctx, height, width)
-            pending.append((k, to_host_async(frames_dev)))
-            if len(pending) >= _WINDOW:
-                drain_one()
+            with trace("readback"):
+                landing.put(k * fpg, frames_dev)
     except EOFError:
         raise EOFError("bitstream too short for requested frames")
-    while pending:
-        drain_one()
+    with trace("readback"):
+        out = landing.result(lambda f: _undelta(f, ctx.cfg, out=f))
     lo, hi = start - g0 * fpg, stop - g0 * fpg
     if lo == 0 and hi == out.shape[0]:
         return out

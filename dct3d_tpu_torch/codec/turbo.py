@@ -910,14 +910,8 @@ def _decode_members(members, pool, width, height, cfg, ctx) -> np.ndarray:
     """Decompress members on ``pool`` with a bounded lookahead, dispatch
     the device steps in order, assemble the frames.  Reference-typed
     fallback members decode through decoder.decode_video on the pool."""
-    out = np.empty((sum(m[0] for m in members), height, width), np.uint8)
-    pending: collections.deque = collections.deque()
-
-    def drain_one() -> None:
-        with trace("readback"):
-            a0, t, started = pending.popleft()
-            out[a0 : a0 + t] = _undelta(staging.landed(started), ctx.cfg)
-
+    landing = staging.Landing((sum(m[0] for m in members), height, width),
+                              ctx.device)
     cube = cfg.cube_size
     lookahead = max(4, 2 * pool._max_workers)
 
@@ -939,13 +933,11 @@ def _decode_members(members, pool, width, height, cfg, ctx) -> np.ndarray:
             inflight.append(submit(members[nxt]))
             nxt += 1
         if mtype in _REF_TYPES:
-            out[a0 : a0 + t] = planar  # already decoded frames
+            landing.out[a0 : a0 + t] = planar  # already decoded frames
         else:
-            pending.append((a0, t, staging.to_host_async(
-                _dispatch_planar4(planar, ctx, height, width))))
-            if len(pending) >= _WINDOW:
-                drain_one()
+            frames_dev = _dispatch_planar4(planar, ctx, height, width)
+            with trace("readback"):
+                landing.put(a0, frames_dev)
         a0 += t
-    while pending:
-        drain_one()
-    return out
+    with trace("readback"):
+        return landing.result(lambda f: _undelta(f, ctx.cfg, out=f))

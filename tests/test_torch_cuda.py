@@ -575,6 +575,10 @@ def test_two_members_decoded_at_once_on_card(dev):
     np.testing.assert_array_equal(together, one_by_one)
     np.testing.assert_array_equal(
         together, multihost.decode_multihost_container(data, 72, 48, workers=1, ctx=ctx))
+    cpu = multihost.decode_multihost_container(
+        data, 72, 48, workers=2, ctx=TransformContext(ctx.cfg, torch.device("cpu")))
+    d = np.abs(together.astype(np.int16) - cpu)
+    assert d.max() <= 1 and (d > 0).mean() < 0.01
 
 
 def test_wrapping_uint8_cumsum_on_card(dev):
@@ -736,14 +740,19 @@ def test_deflate_kernels_equal_plain(dev, name, level):
     assert d.decompress(span.tobytes()) + d.flush() == x.tobytes()
 
 
+def bench_clip_1080p() -> np.ndarray:
+    """Two 1080p GOPs of the bench clip: a moving gradient XOR 0-15 noise."""
+    rng = np.random.default_rng(12345)
+    x, y = np.arange(1920), np.arange(1080)[:, None]
+    return np.stack([(rng.integers(0, 16, (1080, 1920)) ^ ((x + y + k) & 0xFF)).astype(np.uint8)
+                     for k in range(16)])
+
+
 def test_deflate_full_1080p_gops_round_trip(dev):
     """Two 1080p GOPs of the bench clip, as the encode step leaves them on
     the card (the second after the first's carry): each span inflates to
     its GOP's bytes, one workspace reused."""
-    rng = np.random.default_rng(12345)
-    x, y = np.arange(1920), np.arange(1080)[:, None]
-    clip = np.stack([(rng.integers(0, 16, (1080, 1920)) ^ ((x + y + k) & 0xFF)).astype(np.uint8)
-                     for k in range(16)])
+    clip = bench_clip_1080p()
     ctx = TransformContext(CodecConfig(), dev)
     code = torch.zeros((), dtype=torch.int64, device=dev)
     carry = (code, code.clone())
@@ -872,3 +881,83 @@ def test_device_sink_counts_stages_per_gop(dev):
     assert sink.timer.bytes["deflate_out"] == sum(map(len, spans)) - 2  # the header is the sink's
     assert zlib.decompress(data)[: len(raw)] == raw.tobytes()
     assert entropy.parallel_inflate(data, sink.sync_offsets()) == zlib.decompress(data)
+
+
+REF8_CARD = CodecConfig(zlib_level=9, deflate_workers=-1)  # the benchmark's ref8 codec
+
+
+@pytest.fixture(scope="module")
+def container_1080p():
+    """``bench_clip_1080p`` in the indexed container the CLI's default
+    encode writes on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    enc = StreamingEncoder(1920, 1080, REF8_CARD, device=torch.device("cuda"))
+    stream = enc.push(bench_clip_1080p()) + enc.finish()
+    return multihost._member(stream, 16) + multihost.make_index_member(
+        enc.gop_bit_ends, enc.gop_sync_offsets)
+
+
+def _decode_case(case: str, dev, request):
+    """(decode, GOPs it lands): one decode of each kind a landing serves."""
+    from dct3d_tpu_torch import decode_auto, decode_auto_range
+
+    if case == "reference_1080p":
+        data = request.getfixturevalue("container_1080p")
+        return lambda: decode_auto(data, 1920, 1080, cfg=REF8_CARD, device=dev), 2
+    clip = synthetic_video(24, 48, 72, seed=8)
+    if case == "transport_delta":
+        data = encode_video(clip, device="cpu")
+        dcfg = CodecConfig(transport_delta=True)
+        return lambda: decode_video(data, 72, 48, 24, dcfg, device=dev), 3
+    if case == "turbo":
+        data = encode_turbo_video(clip, TURBO_CARD, device=dev)
+        return lambda: decode_turbo_container(data, 72, 48, TURBO_CARD, device=dev), 3
+    enc = StreamingEncoder(72, 48, CodecConfig(deflate_workers=2), device=dev)
+    stream = enc.push(clip) + enc.finish()
+    data = multihost._member(stream, 24) + multihost.make_index_member(
+        enc.gop_bit_ends, enc.gop_sync_offsets)
+    return lambda: decode_auto_range(data, 72, 48, 9, 19, device=dev), 2  # GOPs 1 and 2
+
+
+@pytest.mark.parametrize("case", ["reference_1080p", "transport_delta", "turbo", "seek"])
+def test_direct_landing_equals_staged(dev, monkeypatch, request, case):
+    """Each whole-output decode gives the same bytes when its GOPs land
+    straight in the pinned output as when they go through staging copies
+    (the cap forced to 0), and ``LANDED`` counts its GOPs under the route
+    taken.  The delta decode also equals the plain decode."""
+    from dct3d_tpu_torch import staging
+
+    decode, gops = _decode_case(case, dev, request)
+    staging.LANDED.clear()
+    direct = decode()
+    assert dict(staging.LANDED) == {"direct": gops}
+    with monkeypatch.context() as m:
+        m.setattr(staging, "LANDING_CAP", 0)
+        staged = decode()
+    assert dict(staging.LANDED) == {"direct": gops, "staged": gops}
+    assert direct.dtype == np.uint8 and direct.tobytes() == staged.tobytes()
+    if case == "transport_delta":
+        clip_data = encode_video(synthetic_video(24, 48, 72, seed=8), device="cpu")
+        assert direct.tobytes() == decode_video(clip_data, 72, 48, 24, device=dev).tobytes()
+
+
+def test_landing_reuses_its_pinned_block_and_never_aliases(dev, container_1080p):
+    """A held output stays as it was while a second decode of the same size
+    runs (it lands in another block); once the first output is gone, the
+    next decode lands in the block it freed."""
+    from dct3d_tpu_torch import decode_auto
+
+    ctx = TransformContext(REF8_CARD, dev)
+    first = decode_auto(container_1080p, 1920, 1080, cfg=REF8_CARD, ctx=ctx)
+    assert isinstance(first.base, torch.Tensor) and first.base.is_pinned()
+    kept = first.copy()
+    second = decode_auto(container_1080p, 1920, 1080, cfg=REF8_CARD, ctx=ctx)
+    second[...] = 0
+    np.testing.assert_array_equal(first, kept)
+    assert not np.shares_memory(first, second)
+    block = first.ctypes.data
+    del first
+    third = decode_auto(container_1080p, 1920, 1080, cfg=REF8_CARD, ctx=ctx)
+    assert third.ctypes.data == block
+    np.testing.assert_array_equal(third, kept)

@@ -136,10 +136,11 @@ def test_decode_spans_on_caller_and_pools(clip, tmp_path):
         tmp_path, lambda: out.update(frames=decode_auto(data, W, H, cfg=cfg, ctx=ctx)))
     assert out["frames"].shape == clip.shape
     on_caller = [name for name, tid, _, _ in ranges if tid == caller]
-    for name in ("dispatch", "stage_in", "readback"):
+    for name in ("dispatch", "stage_in"):
         assert on_caller.count(name) == GOPS, name
-    # One wait a GOP, and the last, which finds the chunks' end.
-    assert on_caller.count("entropy_wait") == GOPS + 1
+    # One wait a GOP, and the last, which finds the chunks' end; one
+    # readback a GOP's copy, and the wait for the whole output.
+    assert on_caller.count("entropy_wait") == on_caller.count("readback") == GOPS + 1
     assert on_caller.count("inflate") == 1
     on_workers = [name for name, tid, _, _ in ranges if tid != caller]
     assert on_workers.count("inflate") == GOPS and on_workers.count("entropy") >= 1
@@ -159,7 +160,8 @@ def test_turbo_spans_on_caller_and_workers(clip, tmp_path):
     assert out["frames"].shape == clip.shape
     on_caller = [name for name, tid, _, _ in ranges if tid == caller]
     assert on_caller.count("stage_in") == 2 * GOPS  # encode and decode
-    assert on_caller.count("entropy_wait") == on_caller.count("readback") == GOPS
+    assert on_caller.count("entropy_wait") == GOPS
+    assert on_caller.count("readback") == GOPS + 1  # a GOP's copy each, the output's wait
     assert "wait_drainer" in on_caller
     on_workers = [name for name, tid, _, _ in ranges if tid != caller]
     assert on_workers.count("member") == on_workers.count("parse") == GOPS
